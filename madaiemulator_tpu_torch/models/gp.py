@@ -1,23 +1,26 @@
-"""Scalar Gaussian-process core, serve part (port of
-madaiemulator_tpu/models/gp.py).
+"""Scalar Gaussian-process core: likelihood, regression mean, posterior
+(port of madaiemulator_tpu/models/gp.py).
 
 Math (GP with a generalized-least-squares polynomial mean):
   C = K(X,X;theta) + nugget*I,  H = poly basis (N,p),  A = H^T C^-1 H
   beta = A^-1 H^T C^-1 y,   r = y - H beta
+  logL = -1/2 r^T C^-1 r - 1/2 log|C| - N/2 log 2pi   (- 1/2 log|A| if REML)
   mean(x*) = h(x*)^T beta + k*^T C^-1 r
   var(x*)  = k(x*,x*) - k*^T C^-1 k* + g^T A^-1 g,  g = h(x*) - H^T C^-1 k*
 
-Batching: one GP, or a batch of GPs (the PCA components) that share the
-design X (N, d): y is then (*B, N) and every GPParams leaf and every
-GPPosteriorState field carries the batch shape (*B,) in front. All products
-run in full FP32 at float32 (TF32 is off package-wide), the counterpart of
-the JAX package's Precision.HIGHEST pins.
+Batching: one GP, or a batch of GPs (PCA components, or fit restarts) that
+share the design X (N, d): every GPParams leaf and every GPPosteriorState
+field carries the batch shape (*B,) in front, and y is (*B, N) or one (N,)
+vector shared by the batch. All products run in full FP32 at float32 (TF32
+is off package-wide), the counterpart of the JAX package's
+Precision.HIGHEST pins.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -98,31 +101,47 @@ def query_basis(
     return regression_basis(Xs, config.regression_order)
 
 
-def _factor(data: GPData, params: GPParams, config: GPConfig) -> GPPosteriorState:
-    C = training_gram(data, params, config)
+def _cholesky(C: torch.Tensor, config: GPConfig) -> torch.Tensor:
+    """Factor the Gram by `config.cholesky_method`, as the JAX package
+    routes it (gp.py:195-235), with one deliberate difference: "pallas"
+    above `pallas_cholesky_max_n` goes to the left-looking factorization
+    with kernel K3 on every diagonal panel (diag="pallas") where the JAX
+    package takes diag="xla". Both compute the same factor; the port's
+    "pallas" spelling means "the Hopper kernels". "left" keeps the JAX
+    route exactly (diag="xla"); float64 always takes the library panels."""
     n = C.shape[-1]
     method = config.cholesky_method
     upd = config.cholesky_update_precision
     if upd == "auto":
         upd = "highest"
+    diag = "xla"
     if method == "pallas" and n > config.pallas_cholesky_max_n:
-        method = "left"  # as in the JAX package: large N takes the left path
+        method, diag = "left", "pallas"
     if method == "pallas" and C.dtype != torch.float64:
-        L = linalg.pallas_cholesky(C)
-    elif method == "left" and n > config.cholesky_block:
+        return linalg.pallas_cholesky_diff(C)
+    if method == "left" and n > config.cholesky_block:
         Cp, n0 = linalg.pad_spd(C, config.cholesky_block)
-        L = linalg.left_cholesky(
-            Cp, block=config.cholesky_block, update_precision=upd
+        return linalg.left_cholesky(
+            Cp, block=config.cholesky_block, update_precision=upd, diag=diag
         )[..., :n0, :n0]
-    else:
-        L = linalg.xla_cholesky(C)
+    return linalg.xla_cholesky(C)
+
+
+def _factor(data: GPData, params: GPParams, config: GPConfig) -> GPPosteriorState:
+    C = training_gram(data, params, config)
+    n = C.shape[-1]
+    L = _cholesky(C, config)
     ok = linalg.chol_ok(L)
     # a failed factor is replaced by I so the solves stay finite; ok gates
     eye = torch.eye(n, dtype=L.dtype, device=L.device)
     Lsafe = torch.where(ok[..., None, None], L, eye)
     H = training_basis(data, config)
     y = training_targets(data)
-    H = H.expand(L.shape[:-2] + H.shape[-2:])
+    batch = torch.broadcast_shapes(L.shape[:-2], y.shape[:-1])
+    Lsafe = Lsafe.expand(batch + (n, n))
+    ok = ok.expand(batch)
+    H = H.expand(batch + H.shape[-2:])
+    y = y.expand(batch + (n,))
     Linv_H = linalg.solve_lower(Lsafe, H)  # (*B, N, p)
     Linv_y = linalg.solve_lower(Lsafe, y)  # (*B, N)
     A = Linv_H.mT @ Linv_H
@@ -136,6 +155,118 @@ def _factor(data: GPData, params: GPParams, config: GPConfig) -> GPPosteriorStat
     return GPPosteriorState(
         L=Lsafe, alpha=alpha, beta=beta, LA=LAsafe, Linv_H=Linv_H, ok=ok
     )
+
+
+def _lml_value(
+    params: GPParams, data: GPData, config: GPConfig
+) -> Tuple[torch.Tensor, GPPosteriorState]:
+    """(log-marginal likelihood (*B,), factorization state). -inf where
+    C(theta) is not SPD or the value is not finite."""
+    st = _factor(data, params, config)
+    y = training_targets(data)
+    n = y.shape[-1]
+    H = training_basis(data, config)
+    r = y - (H @ st.beta[..., None])[..., 0]
+    quad = (r * st.alpha).sum(-1)  # r^T C^-1 r = r . alpha
+    logdet = linalg.logdet_from_chol(st.L)
+    ll = -0.5 * quad - 0.5 * logdet - 0.5 * n * math.log(2.0 * math.pi)
+    if config.reml:
+        ll = ll - 0.5 * linalg.logdet_from_chol(st.LA)
+    neg_inf = torch.tensor(-math.inf, dtype=ll.dtype, device=ll.device)
+    ll = torch.where(torch.isfinite(ll), ll, neg_inf)
+    return torch.where(st.ok, ll, neg_inf), st
+
+
+def log_marginal_likelihood_ad(
+    params: GPParams, data: GPData, config: GPConfig
+) -> torch.Tensor:
+    """Plain-autodiff LML: gradients flow through the Cholesky / solve
+    graph. The reference for gradient tests; `log_marginal_likelihood`
+    computes the same value with a closed-form backward."""
+    return _lml_value(params, data, config)[0]
+
+
+class _LML(torch.autograd.Function):
+    """The GLS LML with the closed-form backward (JAX `_lml_dense_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, log_amp, log_nugget, log_ls, data, config):
+        params = GPParams(log_amp, log_nugget, log_ls)
+        ll, st = _lml_value(params, data, config)
+        ctx.save_for_backward(log_amp, log_nugget, log_ls)
+        ctx.st, ctx.data, ctx.config = st, data, config
+        return ll
+
+    @staticmethod
+    def backward(ctx, g):
+        st, data, config = ctx.st, ctx.data, ctx.config
+        L = st.L
+        n = L.shape[-1]
+        if L.dtype == torch.float64:
+            eye = torch.eye(n, dtype=L.dtype, device=L.device)
+            Linv = torch.linalg.solve_triangular(L, eye.expand_as(L),
+                                                 upper=False)
+        else:
+            Linv = linalg.tri_inv_block(L)
+        Cinv = Linv.mT @ Linv
+        Mbar = 0.5 * st.alpha[..., :, None] * st.alpha[..., None, :]
+        Mbar = Mbar - 0.5 * Cinv
+        del Linv, Cinv
+        if config.reml:
+            # +0.5 W A^-1 W^T,  W = C^-1 H = L^-T (L^-1 H)
+            W = linalg.solve_upper_t(L, st.Linv_H)
+            Z = linalg.cho_solve(st.LA, W.mT)  # (*B, p, N) = A^-1 W^T
+            Mbar = Mbar + 0.5 * (W @ Z)
+        Mbar = Mbar * g.to(L.dtype)[..., None, None]
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:3]
+        # the VJP of the library Gram: K1's own backward is that VJP, so
+        # rebuilding C by K1 here would only add a launch and an (N, N)
+        lib = dataclasses.replace(config, gram_method="xla")
+        with torch.enable_grad():
+            p = GPParams(*(t.detach().requires_grad_(nd)
+                           for t, nd in zip(saved, needs)))
+            C = training_gram(data, p, lib)
+            wrt = [t for t in p if t.requires_grad]
+            grads = iter(torch.autograd.grad(
+                C, wrt, Mbar.sum_to_size(C.shape), allow_unused=True))
+        # a failed factorization poisons the gradient, as autodiff through
+        # a NaN factor would; a leaf the whole batch shares (params without
+        # the batch of y) is poisoned if any member failed
+        ok = st.ok if saved[0].shape == st.ok.shape else st.ok.all()
+        out = []
+        for t, nd in zip(p, needs):
+            gr = next(grads) if nd else None
+            if nd and gr is None:
+                gr = torch.zeros_like(t)
+            if gr is not None:
+                okb = ok.reshape(ok.shape + (1,) * (gr.ndim - ok.ndim))
+                gr = torch.where(okb, gr, torch.nan)
+            out.append(gr)
+        return (*out, None, None)
+
+
+def log_marginal_likelihood(
+    params: GPParams, data: GPData, config: GPConfig
+) -> torch.Tensor:
+    """GLS log-marginal likelihood (*B,); -inf where C(theta) is not SPD.
+
+    Differentiable with respect to params through a CLOSED-FORM backward
+    (Rasmussen & Williams eq. 5.9 + the GLS envelope), never through the
+    Cholesky / solve graph:
+
+        d lml = 0.5 alpha^T dC alpha - 0.5 tr(C^-1 dC)
+                [+ 0.5 tr(W A^-1 W^T dC) under REML, W = C^-1 H]
+
+    beta's theta-dependence drops by the envelope theorem. The contraction
+    against dC is ONE autograd VJP of the Gram build (`training_gram`)
+    with cotangent Mbar = 0.5 alpha alpha^T - 0.5 C^-1 (+ the REML term),
+    where C^-1 = Linv^T Linv with Linv from `tri_inv_block` at float32 and
+    a triangular solve at float64. Members whose factorization failed get
+    NaN gradients. Batched over (*B): restarts or components.
+    """
+    return _LML.apply(params.log_amp, params.log_nugget, params.log_ls,
+                      data, config)
 
 
 def _select(ok: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -170,6 +301,35 @@ def precompute_predictor(
         "mean surface", bad, st.ok.numel(),
     )
     return st
+
+
+def precompute_predictor_safe(
+    params: GPParams, data: GPData, config: GPConfig
+) -> GPPosteriorState:
+    """Host-level serving precompute with the escalating-jitter retry, the
+    large-N serve entry point of the JAX package (gp.py:448-472).
+
+    The port's `precompute_predictor` already runs its ladder on the host,
+    once, and merges the rungs per batch member, so this is that function
+    under the JAX package's name. cholesky_update_precision="auto" resolves
+    to "highest" (full FP32) until the precision tiers are ported.
+    """
+    return precompute_predictor(params, data, config)
+
+
+def gp_posterior(
+    params: GPParams,
+    data: GPData,
+    Xs: torch.Tensor,
+    config: GPConfig,
+    hs_extra: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Factor + predict in one call, with the single base factorization (no
+    jitter ladder): params normally come from a successful fit. Serving a
+    snapshot goes through `precompute_predictor_safe`."""
+    st = _factor(data, params, config)
+    return predict_from_precomputed(st, params, data, Xs, config,
+                                    hs_extra=hs_extra)
 
 
 def _auto_query_chunk(n: int, m: int, chunk):

@@ -1,9 +1,13 @@
 """Build the Hopper kernels from `csrc/` with nvcc and bind them with ctypes.
 
 The kernels are plain-C entry points compiled into one shared library:
+one nvcc per source, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o libmadai_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c csrc/<name>.cu -o <name>.o
+
+then one link, `nvcc -shared -o libmadai_kernels_<hash>.so *.o` (K3's
+entry point calls K2's, so the objects share one library).
 
 The build runs at first use (never at import), from the package's own
 sources, into `madaiemulator_tpu_torch/_kernels_build/`. The file name
@@ -27,10 +31,10 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_kernels_build"
-SOURCES = ("pairwise.cu", "cholesky.cu")
+SOURCES = ("pairwise.cu", "cholesky.cu", "panel_factor.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lib = None
@@ -59,26 +63,37 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libmadai_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs) -> None:
+    """Wait for every nvcc process; raise with the output of the first that
+    failed."""
+    failed = None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out)
+    if failed is not None:
+        cmd, rc, out = failed
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+
+
 def _compile(out: pathlib.Path) -> None:
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _find_nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s.replace(".cu", ".o")) for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", o]
+                for s, o in zip(SOURCES, objs)]
+        _run([(c, subprocess.Popen(c, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True))
+              for c in cmds])
+        lib = os.path.join(tmp, out.name)
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib, *objs]
+        _run([(link, subprocess.Popen(link, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))])
         # atomic: a concurrent process sees the old state or the whole file
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(lib, out)
     build_seconds = time.perf_counter() - t0
 
 
@@ -98,6 +113,8 @@ def load() -> ctypes.CDLL:
     lib.madai_pairwise_covariance.restype = i32
     lib.madai_cholesky.argtypes = [ptr, ptr, i32, i32, ptr]
     lib.madai_cholesky.restype = i32
+    lib.madai_panel_factor.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
+    lib.madai_panel_factor.restype = i32
     lib.madai_error_string.argtypes = [i32]
     lib.madai_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -10,8 +10,10 @@ GP. Outputs carry the batch shape in front.
 Routing follows the JAX package: with `gram_method="pallas"` (the port's
 default) a float32 operand of an alpha = 2 power-exponential or Matérn
 kernel goes through kernel K1 (`ops/hopper/pairwise.py`); float64 and
-alpha != 2 take the library math. Forward only: the VJPs that the fit needs
-come with the likelihood.
+alpha != 2 take the library math. On the K1 path the forward is the kernel
+and the backward is the autograd VJP of the identical library math
+(`_K1Cross`, `_K1Gram`; kernels.py:165-239 of the JAX package), so the
+likelihood gradient is exact on both paths.
 """
 
 from __future__ import annotations
@@ -169,6 +171,64 @@ def _k1(U, V, amp, diag_add, config: GPConfig, add_diag: bool):
     return out.reshape(*batch, n1, n2)
 
 
+def _gram_xla(U, amp, diag_add, config: GPConfig):
+    """Library-path Gram from pre-scaled points: symmetrized, plus diag_add
+    on the diagonal."""
+    K = _cross_xla(U, U, amp, config)
+    K = 0.5 * (K + K.mT)  # kill matmul-order asymmetry before Cholesky
+    eye = torch.eye(U.shape[-2], dtype=K.dtype, device=K.device)
+    return K + diag_add[..., None, None] * eye
+
+
+def _library_vjp(fn, inputs, needs, cotangent):
+    """Gradients of fn(*inputs) against `cotangent` for the inputs flagged
+    in `needs`, by autograd through the library math (the backward of both
+    K1 Functions)."""
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_(nd) for x, nd in zip(inputs, needs)]
+        grads = iter(torch.autograd.grad(
+            fn(*xs), [x for x in xs if x.requires_grad], cotangent))
+    return tuple(next(grads) if nd else None for nd in needs)
+
+
+class _K1Cross(torch.autograd.Function):
+    """k(U, V) by K1, with the VJP of `_cross_xla` (JAX
+    `_pallas_cross_vjp`)."""
+
+    @staticmethod
+    def forward(ctx, U, V, amp, config):
+        ctx.config = config
+        ctx.save_for_backward(U, V, amp)
+        return _k1(U, V, amp, torch.zeros_like(amp), config, add_diag=False)
+
+    @staticmethod
+    def backward(ctx, Kbar):
+        U, V, amp = ctx.saved_tensors
+        grads = _library_vjp(
+            lambda u, v, a: _cross_xla(u, v, a, ctx.config),
+            [U, V, amp], ctx.needs_input_grad[:3], Kbar)
+        return (*grads, None)
+
+
+class _K1Gram(torch.autograd.Function):
+    """k(U, U) + diag_add I by K1, with the VJP of the library Gram (JAX
+    `_pallas_gram_vjp`)."""
+
+    @staticmethod
+    def forward(ctx, U, amp, diag_add, config):
+        ctx.config = config
+        ctx.save_for_backward(U, amp, diag_add)
+        return _k1(U, U, amp, diag_add, config, add_diag=True)
+
+    @staticmethod
+    def backward(ctx, Kbar):
+        U, amp, diag_add = ctx.saved_tensors
+        grads = _library_vjp(
+            lambda u, a, d: _gram_xla(u, a, d, ctx.config),
+            [U, amp, diag_add], ctx.needs_input_grad[:3], Kbar)
+        return (*grads, None)
+
+
 def cross_covariance(
     X1: torch.Tensor, X2: torch.Tensor, params: GPParams, config: GPConfig
 ) -> torch.Tensor:
@@ -177,7 +237,7 @@ def cross_covariance(
     V = _scaled(X2, params, config)
     amp = torch.exp(params.log_amp)
     if _pallas_eligible(config, X1.dtype):
-        return _k1(U, V, amp, torch.zeros_like(amp), config, add_diag=False)
+        return _K1Cross.apply(U, V, amp, config)
     return _cross_xla(U, V, amp, config)
 
 
@@ -207,13 +267,10 @@ def gram_matrix(X: torch.Tensor, params: GPParams, config: GPConfig) -> torch.Te
     jitter_frac = effective_jitter_frac(n, X.dtype, config)
     amp = torch.exp(params.log_amp)
     diag_add = torch.exp(params.log_nugget) + jitter_frac * amp
+    U = _scaled(X, params, config)
     if _pallas_eligible(config, X.dtype):
-        U = _scaled(X, params, config)
-        return _k1(U, U, amp, diag_add, config, add_diag=True)
-    K = cross_covariance(X, X, params, config)
-    K = 0.5 * (K + K.mT)  # kill matmul-order asymmetry before Cholesky
-    eye = torch.eye(n, dtype=K.dtype, device=K.device)
-    return K + diag_add[..., None, None] * eye
+        return _K1Gram.apply(U, amp, diag_add, config)
+    return _gram_xla(U, amp, diag_add, config)
 
 
 def kdiag(Xs: torch.Tensor, params: GPParams, config: GPConfig) -> torch.Tensor:

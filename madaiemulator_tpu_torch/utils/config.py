@@ -71,7 +71,10 @@ class GPConfig:
 
     cholesky_method: "pallas" (default here) factors N <= pallas_cholesky_max_n
     with kernel K2 (`ops/hopper/cholesky.py`) at float32 and routes larger N
-    to "left"; "left" is the left-looking blocked factorization
+    to the left-looking blocked factorization with kernel K3
+    (`ops/hopper/panel.py`) on every diagonal panel (the JAX package takes
+    library panels there; the factor is the same); "left" is the
+    left-looking factorization with library panels, the JAX route exactly
     (`ops/linalg.left_cholesky`); "xla" is `torch.linalg.cholesky_ex`.
     "blocked" is not ported and is rejected.
 

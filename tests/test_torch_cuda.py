@@ -1,5 +1,6 @@
-"""Hopper kernels K1 (pairwise covariance) and K2 (batched Cholesky) on the
-card, against their plain-PyTorch versions and a float64 reference.
+"""Hopper kernels K1 (pairwise covariance), K2 (batched Cholesky) and K3
+(panel factor and inverse) on the card, against their plain-PyTorch versions
+and a float64 reference.
 
 Every test here needs an NVIDIA GPU and nvcc; on a machine without them each
 skips with its reason. This file imports no jax, so it runs on a machine
@@ -14,6 +15,7 @@ import torch
 
 from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
 from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
+from madaiemulator_tpu_torch.ops.hopper import panel as k3
 
 pytestmark = pytest.mark.cuda
 
@@ -136,3 +138,79 @@ def test_jitter_ladder_on_the_card(dev):
     assert st.ok.tolist() == [True, True]
     assert k2.launches - before >= 3  # base + base again + one rung
     assert torch.equal(st.L[0], base.L[0])
+
+
+@pytest.mark.parametrize("b", [32, 128, 512, 1024])
+def test_k3_matches_plain_and_f64(dev, b):
+    """K3 (L, L^-1) against its plain version and a float64 factor, to
+    K2_RTOL x max|L| (max|L^-1| for the inverse); |L^-1 L - I| <= 1e-4 (the
+    JAX bound, tests/test_pallas.py:116); zeros above the diagonal."""
+    rng = np.random.default_rng(b)
+    A = _grams(rng, 2, b)
+    L, Linv = k3.panel_factor(A.to(dev))
+    Lp, Linvp = k3.panel_factor_plain(A.to(dev))
+    L64 = torch.linalg.cholesky(A.double())
+    torch.cuda.synchronize()
+    scale, iscale = L64.abs().max().item(), Linvp.abs().max().item()
+    assert torch.equal(L, torch.tril(L)) and torch.equal(Linv, torch.tril(Linv))
+    assert (L.cpu().double() - L64).abs().max().item() <= K2_RTOL * scale
+    assert (L - Lp).abs().max().item() <= K2_RTOL * scale
+    assert (Linv - Linvp).abs().max().item() <= K2_RTOL * iscale
+    eye = Linv.double() @ L.double()
+    assert (eye - torch.eye(b, dtype=torch.float64, device=dev)).abs().max(
+    ).item() <= 1e-4
+
+
+def test_k3_non_spd_gives_nan_in_the_failed_member_only(dev):
+    rng = np.random.default_rng(2)
+    A = _grams(rng, 3, 256).to(dev)
+    A[1] -= 5.0 * torch.eye(256, device=dev)  # indefinite
+    before = k3.launches
+    L, Linv = k3.panel_factor(A)
+    torch.cuda.synchronize()
+    assert k3.launches == before + 1
+    for out in (L, Linv):
+        assert torch.isfinite(out).flatten(1).all(1).tolist() == [
+            True, False, True]
+        assert torch.isnan(out[1]).any()
+
+
+def test_k3_refuses_what_it_does_not_take(dev):
+    A = torch.eye(64, device=dev)[None].repeat(2, 1, 1)
+    with pytest.raises(TypeError):
+        k3.panel_factor(A.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.panel_factor(A.mT)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        k3.panel_factor(torch.eye(40, device=dev)[None])
+    with pytest.raises(ValueError):
+        k3.panel_factor(A[0])
+
+
+def test_large_n_factor_goes_through_k3(dev):
+    """`_factor` above pallas_cholesky_max_n with cholesky_method="pallas"
+    runs the left-looking factorization with K3 on every panel, and its
+    factor matches the library route's."""
+    import dataclasses
+
+    from madaiemulator_tpu_torch.models import gp
+    from madaiemulator_tpu_torch.ops.kernels import GPParams
+    from madaiemulator_tpu_torch.utils.config import GPConfig
+
+    rng = np.random.default_rng(3)
+    X = torch.tensor(rng.uniform(size=(1500, 4)), dtype=torch.float32,
+                     device=dev)
+    y = torch.sin(3 * X[:, 0]) + X[:, 1] ** 2
+    p = GPParams(log_amp=torch.zeros((), device=dev),
+                 log_nugget=torch.log(torch.tensor(1e-2, device=dev)),
+                 log_ls=torch.log(torch.full((4,), 0.5, device=dev)))
+    cfg = GPConfig(nparams=4, cholesky_block=512)
+    before = k3.launches
+    st = gp._factor(gp.GPData(X=X, y=y), p, cfg)
+    torch.cuda.synchronize()
+    assert k3.launches - before == 3  # N padded to 1536 = 3 panels of 512
+    ref = gp._factor(gp.GPData(X=X, y=y), p,
+                     dataclasses.replace(cfg, cholesky_method="xla"))
+    assert bool(st.ok) and bool(ref.ok)
+    scale = ref.L.abs().max().item()
+    assert (st.L - ref.L).abs().max().item() <= K2_RTOL * scale

@@ -193,16 +193,23 @@ def test_kernel_path_f32_factor_and_posterior_match_jax_pallas():
 
 def test_left_cholesky_route_matches_library():
     """pallas above pallas_cholesky_max_n routes to left_cholesky (padded to
-    cholesky_block), as in the JAX package; it agrees with the library."""
+    cholesky_block): with library panels at float64, where it agrees with
+    the library factor, and with kernel K3 on every panel at float32, where
+    it agrees with the JAX package's left-looking factor."""
     _, ct, _, pt, _, dt = _states("matern32", torch.float64)
     left = dataclasses.replace(ct, cholesky_method="pallas",
                                pallas_cholesky_max_n=16, cholesky_block=16)
     st = tgp._factor(dt, pt, left)
     ref = tgp._factor(dt, pt, ct)
     _close(st.L, ref.L.numpy(), rtol=1e-12, atol=1e-13)
-    A = torch.eye(40, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="K3"):
-        tl.left_cholesky(A, block=8, diag="pallas")
+    cj, ct, pj, pt, dj, dt = _states("matern32", torch.float32)
+    k3 = dataclasses.replace(ct, cholesky_method="pallas",
+                             pallas_cholesky_max_n=16, cholesky_block=32)
+    sj = jgp._factor(dj, pj, dataclasses.replace(
+        cj, cholesky_method="left", cholesky_block=32))
+    st = tgp._factor(dt, pt, k3)
+    assert bool(st.ok) and bool(sj.ok)
+    _close(st.L, sj.L, rtol=1e-4, atol=1e-5)
 
 
 def test_non_spd_gives_not_ok_like_jax():

@@ -1,4 +1,4 @@
-"""Plain versions of the Hopper kernels K1 / K2 (madaiemulator_tpu_torch,
+"""Plain versions of the Hopper kernels K1 / K2 / K3 (madaiemulator_tpu_torch,
 ops/hopper/) against the JAX package's Pallas kernels in interpret mode, on
 the CPU. The same inputs, made with numpy from a seed, go through both.
 
@@ -13,10 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from madaiemulator_tpu.ops.pallas.cholesky import pallas_cholesky
+from madaiemulator_tpu.ops.pallas.cholesky import (
+    pallas_cholesky,
+    pallas_panel_factor,
+)
 from madaiemulator_tpu.ops.pallas.pairwise import pairwise_covariance
 from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
 from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
+from madaiemulator_tpu_torch.ops.hopper import panel as k3
 
 
 def _k1_inputs(seed, n1, n2, d, gram):
@@ -114,3 +118,43 @@ def test_plain_k2_non_spd_gives_nan_not_garbage():
     assert torch.isnan(L[1]).any()
     with pytest.raises(ValueError, match="unsupported device"):
         k2.cholesky(torch.empty(1, 4, 4, device="meta"))
+
+
+@pytest.mark.parametrize("b", [128, 256])
+def test_plain_k3_matches_pallas_interpret(b):
+    """(L, L^-1) of one panel against pallas_panel_factor in interpret mode
+    (tests/test_pallas.py:107-116 inputs and bounds)."""
+    A = _spd_batch(b, 1, b)
+    Lj, invj = pallas_panel_factor(jnp.asarray(A[0]), panel=64,
+                                   interpret=True)
+    L, Linv = k3.panel_factor(torch.from_numpy(A))
+    Lj, invj = np.asarray(Lj), np.asarray(invj)
+    # two f32 factorizations / inverses of a cond ~ 10 matrix
+    np.testing.assert_allclose(L[0].numpy(), Lj, rtol=0,
+                               atol=1e-5 * np.abs(Lj).max())
+    np.testing.assert_allclose(Linv[0].numpy(), invj, rtol=0,
+                               atol=1e-5 * np.abs(invj).max())
+    eye = Linv[0].double().numpy() @ L[0].double().numpy()
+    assert np.abs(eye - np.eye(b)).max() <= 1e-4
+    assert torch.equal(L, torch.tril(L)) and torch.equal(Linv, torch.tril(Linv))
+
+
+def test_plain_k3_non_spd_nan_and_wrapper_checks():
+    A = _spd_batch(7, 3, 96)
+    A[2] -= 400.0 * np.eye(96, dtype=np.float32)  # indefinite member
+    A[0] = np.tril(A[0]) + 1e30 * np.triu(np.ones((96, 96), np.float32), 1)
+    before = k3.launches
+    L, Linv = k3.panel_factor(torch.from_numpy(A))
+    assert k3.launches == before  # no kernel ran on the CPU
+    for out in (L, Linv):
+        assert torch.isfinite(out).flatten(1).all(1).tolist() == [
+            True, True, False]
+        assert torch.isnan(out[2]).any()
+    # only the lower triangle is read: member 0 equals its symmetric twin
+    sym = torch.from_numpy(np.tril(A[0]) + np.tril(A[0], -1).T)[None]
+    L0, Linv0 = k3.panel_factor(sym)
+    assert torch.equal(L[0], L0[0]) and torch.equal(Linv[0], Linv0[0])
+    with pytest.raises(ValueError, match="multiple of 32"):
+        k3.panel_factor(torch.eye(40)[None])
+    with pytest.raises(ValueError, match="unsupported device"):
+        k3.panel_factor(torch.empty(1, 32, 32, device="meta"))

@@ -255,9 +255,12 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import madaiemulator_tpu_torch.cli, madaiemulator_tpu_torch.io.snapshot\n"
         "import madaiemulator_tpu_torch.models.multivariate\n"
+        "import madaiemulator_tpu_torch.models.fit\n"
         "import madaiemulator_tpu_torch.ops.hopper.build\n"
         "import madaiemulator_tpu_torch.ops.hopper.cholesky\n"
         "import madaiemulator_tpu_torch.ops.hopper.pairwise\n"
+        "import madaiemulator_tpu_torch.ops.hopper.panel\n"
+        "import chip_smoke\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'madaiemulator_tpu' not in sys.modules\n"
     )
