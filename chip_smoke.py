@@ -15,7 +15,11 @@ It imports no jax. Phases, in order; any failure exits non-zero:
                (panel factor + inverse, b in {128, 512, 1024}) on the card
                against their plain-PyTorch versions, K2 and K3 also against
                a float64 factor, K3's |Linv L - I|; NaN on a non-SPD input;
-               kernel, plain and library times and each kernel's bound.
+               for K2 and K3 (one cluster launch per call) the chosen
+               cluster sizes, 20 bitwise-equal repeats, batches of more
+               clusters than the card holds at once and a call on a
+               non-default stream; kernel, plain and library times and each
+               kernel's bound.
   4. goldens — serve tests/golden/*/state.txt on the card: float64 (library
                path) against expected.txt at rtol 1e-6; float32 (kernel
                path) against the float32 plain-kernel path on the CPU.
@@ -23,7 +27,7 @@ It imports no jax. Phases, in order; any failure exits non-zero:
                emulator (N=512, d=6, t=15, r=4 after PCA), served in-process
                on the kernels (launch counters reset before, read after)
                against float64, then through `interactive_mode` as a
-               subprocess; precompute and predict times.
+               subprocess; precompute and predict times and profiles.
   6. config4 — BASELINE config 4 at full width (N=16,384, d=8, power-
                exponential alpha=2, regression_order=1; data as
                bench/bench_large_n.py draws it): left_cholesky on both
@@ -194,6 +198,86 @@ def bound_ms(nbytes: float, flops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _gram_batch(rng, B, n, nugget, dev, d=6, ls=0.3):
+    """(B, n, n) power-exponential Grams of uniform points: SPD test input."""
+    from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
+
+    U = _points(rng, B, n, d, [ls] * d, dev)
+    return k1.pairwise_covariance_plain(
+        U, U, torch.ones(B, device=dev), torch.full((B,), nugget, device=dev),
+        "power_exponential", True,
+    )
+
+
+def _cluster_checks(dev, rng) -> None:
+    """K2 and K3 as cluster kernels: the cluster size chosen per shape, then
+    what one launch of co-operating CTAs can get wrong: a race (run-to-run
+    difference), clusters queued behind a full card, a foreign stream."""
+    from madaiemulator_tpu_torch.ops.hopper import build
+    from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
+    from madaiemulator_tpu_torch.ops.hopper import panel as k3
+
+    lib = build.load()
+    main_path = [(4, 512), (1, 512), (2, 512), (1, 1024)]
+    sizes = {f"({B},{n})": lib.madai_cluster_size(B, n)
+             for B, n in main_path + [(32, 512), (4, 500), (40, 256),
+                                      (300, 128), (4, 100), (4, 33)]}
+    require(all(sizes[f"({B},{n})"] > 1 for B, n in main_path),
+            f"a main-path shape runs on a single CTA: {sizes}")
+    held = {c: lib.madai_cholesky_max_active_clusters(c)
+            for c in (1, 2, 4, 8, 16)}
+    require(all(v > 0 for v in held.values()),
+            f"a cluster size cannot be scheduled: {held}")
+    print(f"K2/K3 cluster size (CTAs per matrix) by (batch, n): {sizes}; "
+          f"clusters of that size the card holds at once: {held}")
+
+    def both(A):
+        return (k2.cholesky(A),) + (k3.panel_factor(A)
+                                    if A.shape[-1] % 32 == 0 else ())
+
+    # (a) 20 calls on one input give bitwise-equal outputs
+    for B, n in ((4, 512), (1, 1024), (4, 500), (2, 480)):
+        A = _gram_batch(rng, B, n, 0.1, dev)
+        first = both(A)
+        for _ in range(19):
+            again = both(A)
+            require(all(torch.equal(x, y) for x, y in zip(first, again)),
+                    f"K2/K3 ({B},{n},{n}): outputs differ between calls")
+    print("K2/K3 repeat: 20 calls bitwise equal at (4,512,512), "
+          "(1,1024,1024), (2,480,480) and K2 at the ragged (4,500,500)")
+    # (b) more clusters than the card holds at once
+    for B, n in ((40, 256), (300, 128)):
+        A = _gram_batch(rng, B, n, 0.1, dev)
+        L, (L3, Linv) = k2.cholesky(A), k3.panel_factor(A)
+        L64 = torch.linalg.cholesky(A.double())
+        torch.cuda.synchronize()
+        scale = L64.abs().max().item()
+        e2 = (L.double() - L64).abs().max().item()
+        e3 = (L3.double() - L64).abs().max().item()
+        eye = torch.eye(n, dtype=torch.float64, device=dev)
+        einv = (Linv.double() @ L3.double() - eye).abs().max().item()
+        require(e2 <= K2_RTOL * scale and e3 <= K2_RTOL * scale
+                and einv <= K3_INV_TOL,
+                f"large batch ({B},{n}): K2 {e2:.3g}, K3 {e3:.3g}, "
+                f"|Linv L - I| {einv:.3g}")
+        print(f"K2/K3 large batch ({B},{n},{n}), cluster size "
+              f"{lib.madai_cluster_size(B, n)}: vs float64 K2 {e2:.3g}, K3 "
+              f"{e3:.3g} (tol {K2_RTOL} x max|L| {scale:.3g}); "
+              f"max|Linv L - I| {einv:.3g}")
+    # (c) a non-default stream
+    A = _gram_batch(rng, 4, 512, 0.1, dev)
+    want = both(A)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(device=dev)
+    with torch.cuda.stream(side):
+        got = both(A)
+    side.synchronize()
+    require(all(torch.equal(x, y) for x, y in zip(want, got)),
+            "K2/K3 on a non-default stream differ from the default stream")
+    print("K2/K3 on a non-default torch.cuda.Stream: bitwise equal to the "
+          "default stream's")
+
+
 def phase_kernels(dev, rng) -> list:
     from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
     from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
@@ -298,6 +382,17 @@ def phase_kernels(dev, rng) -> list:
     print(f"K2 time ({B},{n},{n}): kernel {t2:.4f} ms, plain {t2p:.4f} ms, "
           f"torch.linalg.cholesky_ex {t2lib:.4f} ms, bound "
           f"{k2_bound[0]:.5f} ms ({k2_bound[1]})")
+    # one large matrix, and a fit-loop batch (restarts x components)
+    for bb, nn in ((1, 1024), (32, 512)):
+        Ab = _gram_batch(rng, bb, nn, 1e-3, dev)
+        tb = bound_ms(4 * (bb * nn * (nn + 1) / 2 + bb * nn * nn),
+                      bb * nn ** 3 / 3)
+        print(f"K2 time ({bb},{nn},{nn}): kernel "
+              f"{cuda_ms(lambda: k2.cholesky(Ab)):.4f} ms, "
+              f"torch.linalg.cholesky_ex "
+              f"{cuda_ms(lambda: torch.linalg.cholesky_ex(Ab)):.4f} ms, "
+              f"bound {tb[0]:.5f} ms ({tb[1]})")
+        del Ab
 
     k3_err = 0.0
     Bp = 2
@@ -337,6 +432,7 @@ def phase_kernels(dev, rng) -> list:
         require(finite == [True, False], f"K3 non-SPD {what} finite {finite}")
         require(bool(torch.isnan(out[1]).any()), f"K3 non-SPD {what} no NaN")
     print("K3 non-SPD input: NaN in the failed member's L and Linv only")
+    _cluster_checks(dev, rng)
 
     k3_times, k3_bounds = {}, {}
     for bb, b in ((2, 512), (1, 512), (1, 1024)):
@@ -599,11 +695,16 @@ def phase_slice(dev, rng, smi) -> dict:
                   f"precompute (Gram + Cholesky + GLS, r={r}) "
                   f"{times[label][0]:.3f} ms; predict 1024 queries "
                   f"{times[label][1]:.3f} ms")
+        profile_once("precompute", lambda: _vmapped_states(
+            emu.params, emu.X, emu.Z, emu.config), times["kernels"][0], smi,
+            cell="slice")
+        profile_once("predict_1024", lambda: predict_multivariate(
+            emu, queries), times["kernels"][1], smi, cell="slice")
     return launches
 
 
 def profile_once(what: str, fn, wall_ms: float, smi: str,
-                 top: int = 8) -> None:
+                 top: int = 8, cell: str = "config4") -> None:
     """Run fn() once under torch.profiler; print the device time of its
     kernels, their count, the busy share (device time over `wall_ms`, the
     call's wall time measured without the profiler) and the kernels that
@@ -627,7 +728,7 @@ def profile_once(what: str, fn, wall_ms: float, smi: str,
     total = sum(dev_us(e) for e in kern)
     n = sum(e.count for e in kern)
     rows = sorted(kern, key=dev_us, reverse=True)[:top]
-    print(f"config4 profile {what}: kernels {total / 1e3:.3f} ms device in "
+    print(f"{cell} profile {what}: kernels {total / 1e3:.3f} ms device in "
           f"{n} launches, busy {total / 1e3 / wall_ms:.2f} of {wall_ms:.3f} "
           f"ms wall ({smi}); top: " + "; ".join(
               f"{e.key[:48]} {dev_us(e) / 1e3:.3f} ms x{e.count}"

@@ -17,6 +17,11 @@ TPU kernels on those paths are hand-written CUDA for sm_90a under
     K2  batched Cholesky      <- madaiemulator_tpu/ops/pallas/cholesky.py
     K3  panel factor + inverse <- madaiemulator_tpu/ops/pallas/cholesky.py
 
+K2 and K3 are each ONE kernel launch per call: the grid is one thread-block
+cluster per matrix, and the chain of 32-wide panel steps (and, in K3, the
+recursive-doubling inverse after it) runs inside the kernel with cluster
+barriers between dependent stages (`csrc/chol_cluster.cuh`).
+
 Numerics: every float32 product must run in full FP32, as the JAX package
 pins its dots to Precision.HIGHEST. Importing this package therefore turns
 TF32 off for matmuls and cuDNN and keeps the float32 matmul precision at

@@ -6,12 +6,13 @@ one nvcc per source, all started together,
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
          -Xcompiler -fPIC -c csrc/<name>.cu -o <name>.o
 
-then one link, `nvcc -shared -o libmadai_kernels_<hash>.so *.o` (K3's
-entry point calls K2's, so the objects share one library).
+then one link, `nvcc -shared -o libmadai_kernels_<hash>.so *.o`. K2 and K3
+share their device code through the header `csrc/chol_cluster.cuh`.
 
 The build runs at first use (never at import), from the package's own
 sources, into `madaiemulator_tpu_torch/_kernels_build/`. The file name
-carries a hash of the sources and flags, so an edited source rebuilds and an
+carries a hash of every file under `csrc/` (headers included) and of the
+flags, so an edited source or header rebuilds and an
 unchanged one loads in milliseconds. `--use_fast_math` is deliberately
 absent: the kernels' expf/sqrtf must stay IEEE-accurate for parity with the
 float32 reference.
@@ -55,11 +56,14 @@ def _find_nvcc() -> str:
     )
 
 
-def library_path() -> pathlib.Path:
+def library_path(csrc: pathlib.Path = CSRC) -> pathlib.Path:
+    """Where the library built from `csrc` lives: the name changes when any
+    source or header there (`*.cu`, `*.cuh`) or a flag changes."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for f in sorted(p for p in csrc.iterdir()
+                    if p.suffix in (".cu", ".cuh")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     return BUILD_DIR / f"libmadai_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -115,6 +119,10 @@ def load() -> ctypes.CDLL:
     lib.madai_cholesky.restype = i32
     lib.madai_panel_factor.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
     lib.madai_panel_factor.restype = i32
+    lib.madai_cluster_size.argtypes = [i32, i32]
+    lib.madai_cluster_size.restype = i32
+    lib.madai_cholesky_max_active_clusters.argtypes = [i32]
+    lib.madai_cholesky_max_active_clusters.restype = i32
     lib.madai_error_string.argtypes = [i32]
     lib.madai_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -3,16 +3,26 @@
 Replaces the TPU kernel `madaiemulator_tpu/ops/pallas/cholesky.py`
 (`pallas_cholesky`), the VMEM-resident factorization of the serve-state and
 fit-loop Grams (N <= `GPConfig.pallas_cholesky_max_n`). The CUDA source is
-`csrc/cholesky.cu`, whose header says what bounds it on an H100 and how its
-design answers that.
+`csrc/cholesky.cu` on the shared device code `csrc/chol_cluster.cuh`.
 
-Both versions run the same algorithm: right-looking over 32-wide panels —
-an unblocked column-by-column factor of the diagonal block, the panel below
-by triangular solve, then the trailing update of the lower triangle. Only
-the lower triangle of A is read, the factor has zeros above the diagonal,
-and a pivot that is not positive becomes NaN, so a non-SPD input gives NaN
-entries (never finite garbage): `linalg.chol_ok` and the serve path's jitter
-ladder rely on that. n needs no padding.
+What bounds it on an H100 is neither flops nor bytes but the chain of n / 32
+dependent panel steps, so the design keeps a step short: ONE kernel launch
+per call, one thread-block cluster of 1-16 CTAs per matrix (a fixed rule
+from the batch and the side, `cluster_size_rule` in the header), the panel
+chain inside the kernel with a cluster barrier where a launch boundary would
+stand. Per 32-wide panel (right-looking): the diagonal block
+factored by one warp of every CTA, the panel below solved by the cluster's
+warps, the trailing update in 64x64 register-tiled FP32 tiles dealt over the
+cluster. The matrix stays in L2-resident global memory (a 1024^2 matrix is
+4 MiB; a CTA may use 227 KB of shared memory).
+
+The plain version computes the same function, right-looking over 32-wide
+panels with library calls for the solve and the update; the two differ by
+float32 summation order only. Only the lower triangle of A is read, the
+factor has zeros above the diagonal, and a pivot that is not positive
+becomes NaN, so a non-SPD input gives NaN entries (never finite garbage):
+`linalg.chol_ok` and the serve path's jitter ladder rely on that. n needs no
+padding.
 
 `cholesky` launches the kernel for CUDA tensors and raises on anything the
 kernel does not take; for CPU tensors it runs `cholesky_plain`.
@@ -22,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-PANEL = 32  # panel width, as in csrc/cholesky.cu
+PANEL = 32  # panel width, as in csrc/chol_cluster.cuh (kNB)
 
 # Kernel launches made by `cholesky` (plain-version calls do not count).
 launches = 0

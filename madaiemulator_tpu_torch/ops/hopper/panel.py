@@ -3,22 +3,27 @@
 Replaces the TPU kernel `madaiemulator_tpu/ops/pallas/cholesky.py`
 (`pallas_panel_factor`), which the left-looking large-N factorization
 (`ops/linalg.left_cholesky`, diag="pallas") calls once per diagonal panel.
-The CUDA source is `csrc/panel_factor.cu`, whose header says what bounds it
-on an H100 and how its design answers the 227 KB shared-memory limit.
+The CUDA source is `csrc/panel_factor.cu` on the shared device code
+`csrc/chol_cluster.cuh`.
 
-Both versions run the same algorithm:
+What bounds it on an H100, at a batch of 1-2 panels, is the chain of
+dependent steps, not its 2 b^3 / 3 flops. The kernel is ONE launch per call,
+one thread-block cluster of 1-16 CTAs per panel (K2's rule),
+cluster barriers between dependent stages:
 
-  1. the factor L by kernel K2's algorithm (`ops/hopper/cholesky.py`);
-  2. L^-1 in 32x32 tiles: each diagonal tile inverted by forward
-     substitution, then the tiles below the diagonal, one tile diagonal
-     s = i - j at a time, by inv[i,j] = -inv[i,i] sum_{k=j}^{i-1} L[i,k]
-     inv[k,j].
+  1. the factor L by kernel K2's device code (`ops/hopper/cholesky.py`);
+  2. L^-1 by recursive doubling: the 32x32 diagonal tiles inverted by
+     forward substitution, then neighbouring inverted blocks of side
+     s = 32, 64, ... merged, inv21 = -invC (L21 invA), in 64x64 FP32 tiles
+     dealt over the cluster: log2(b / 32) levels of two product stages.
 
-Only the lower triangle of A is read, both outputs are zero above the
-diagonal, and a pivot that is not positive gives NaN in that member's L and
-L^-1 (never finite garbage), so `linalg.chol_ok` and the serve path's jitter
-ladder work as with K2. Every product is full FP32 (TF32 is off
-package-wide). b must be a multiple of 32.
+The plain version computes the same pair with a tile-diagonal recurrence,
+inv[i,j] = -inv[i,i] sum_{k=j}^{i-1} L[i,k] inv[k,j]; the two differ by
+float32 summation order only. Only the lower triangle of A is read, both
+outputs are zero above the diagonal, and a pivot that is not positive gives
+NaN in that member's L and L^-1 (never finite garbage), so `linalg.chol_ok`
+and the serve path's jitter ladder work as with K2. Every product is full
+FP32 (TF32 is off package-wide). b must be a multiple of 32.
 
 `panel_factor` launches the kernel for CUDA tensors and raises on anything
 the kernel does not take; for CPU tensors it runs `panel_factor_plain`.
@@ -32,7 +37,7 @@ import torch
 
 from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
 
-TILE = 32  # inverse tile side, as in csrc/panel_factor.cu
+TILE = 32  # inverse tile side, as in csrc/chol_cluster.cuh (kNB)
 
 # Kernel launches made by `panel_factor` (plain-version calls do not count).
 launches = 0

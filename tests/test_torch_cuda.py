@@ -82,7 +82,7 @@ def _grams(rng, B, n, d=6):
                                         "power_exponential", True)
 
 
-@pytest.mark.parametrize("n", [1, 31, 64, 100, 128, 500, 512, 1024])
+@pytest.mark.parametrize("n", [1, 31, 33, 64, 100, 128, 500, 512, 1024])
 def test_k2_matches_plain_and_f64(dev, n):
     rng = np.random.default_rng(n)
     A = _grams(rng, 4, n)
@@ -108,6 +108,75 @@ def test_k2_non_spd_gives_nan(dev):
     bad = ~torch.isfinite(L).flatten(1).all(1)
     assert bad.tolist() == [False, True, False]
     assert torch.isnan(L[1]).any()
+
+
+def _k2_k3(A):
+    """K2's factor and, where the side allows it, K3's pair."""
+    out = (k2.cholesky(A),)
+    return out + k3.panel_factor(A) if A.shape[-1] % 32 == 0 else out
+
+
+@pytest.mark.parametrize("B,n", [(4, 512), (1, 1024), (4, 500), (2, 480)])
+def test_k2_k3_repeat_bitwise(dev, B, n):
+    """One launch of co-operating CTAs: a race between them would show as a
+    difference between calls on the same input."""
+    A = _grams(np.random.default_rng(n), B, n).to(dev)
+    first = _k2_k3(A)
+    for _ in range(19):
+        again = _k2_k3(A)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+@pytest.mark.parametrize("B,n", [(40, 256), (300, 128)])
+def test_k2_k3_more_clusters_than_the_card_holds(dev, B, n):
+    A = _grams(np.random.default_rng(B), B, n)
+    L, L3, Linv = _k2_k3(A.to(dev))
+    L64 = torch.linalg.cholesky(A.double())
+    torch.cuda.synchronize()
+    scale = L64.abs().max().item()
+    assert (L.cpu().double() - L64).abs().max().item() <= K2_RTOL * scale
+    assert (L3.cpu().double() - L64).abs().max().item() <= K2_RTOL * scale
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+    assert (Linv.double() @ L3.double() - eye).abs().max().item() <= 1e-4
+    assert torch.equal(L, torch.tril(L)) and torch.equal(Linv, torch.tril(Linv))
+
+
+def test_k2_k3_on_a_side_stream(dev):
+    A = _grams(np.random.default_rng(5), 4, 512).to(dev)
+    want = _k2_k3(A)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(device=dev)
+    with torch.cuda.stream(side):
+        got = _k2_k3(A)
+    side.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(want, got))
+
+
+@pytest.mark.parametrize("B,n,want", [
+    (4, 512, 16),    # the multivariate serve path: r = 4 components
+    (1, 512, 16),    # config 4: one diagonal panel of cholesky_block = 512
+    (2, 512, 16),    # the fit: both restarts' panels in one batch
+    (1, 1024, 16),   # cholesky_block = 1024
+    (32, 512, 2),    # a fit-loop batch: the batch alone fills the card
+    (40, 256, 2), (300, 128, 1), (4, 33, 2), (4, 32, 1), (1, 1, 1),
+])
+def test_cluster_size_rule(dev, B, n, want):
+    """CTAs per matrix of the K2 / K3 launch: one per 32 rows up to 16,
+    halved while the batch would need a second wave of clusters; and the
+    card can schedule a cluster of that size."""
+    from madaiemulator_tpu_torch.ops.hopper import build
+
+    lib = build.load()
+    assert lib.madai_cluster_size(B, n) == want
+    assert lib.madai_cholesky_max_active_clusters(want) > 0
+
+
+def test_k2_reads_only_the_lower_triangle(dev):
+    A = _grams(np.random.default_rng(6), 2, 160).to(dev)
+    poisoned = torch.tril(A) + 1e30 * torch.triu(torch.ones_like(A), 1)
+    assert torch.equal(k2.cholesky(A), k2.cholesky(poisoned))
+    for x, y in zip(k3.panel_factor(A), k3.panel_factor(poisoned)):
+        assert torch.equal(x, y)
 
 
 def test_jitter_ladder_on_the_card(dev):
@@ -140,7 +209,7 @@ def test_jitter_ladder_on_the_card(dev):
     assert torch.equal(st.L[0], base.L[0])
 
 
-@pytest.mark.parametrize("b", [32, 128, 512, 1024])
+@pytest.mark.parametrize("b", [32, 64, 96, 128, 512, 1024])
 def test_k3_matches_plain_and_f64(dev, b):
     """K3 (L, L^-1) against its plain version and a float64 factor, to
     K2_RTOL x max|L| (max|L^-1| for the inverse); |L^-1 L - I| <= 1e-4 (the

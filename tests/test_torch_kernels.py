@@ -158,3 +158,27 @@ def test_plain_k3_non_spd_nan_and_wrapper_checks():
         k3.panel_factor(torch.eye(40)[None])
     with pytest.raises(ValueError, match="unsupported device"):
         k3.panel_factor(torch.empty(1, 32, 32, device="meta"))
+
+
+def test_library_path_follows_every_file_under_csrc(tmp_path):
+    """The build is keyed by a hash of all sources AND headers: an edited
+    header must not load a stale library."""
+    import shutil
+
+    from madaiemulator_tpu_torch.ops.hopper import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    assert build.library_path(csrc) == build.library_path()
+    names = sorted(f.name for f in csrc.iterdir())
+    assert any(n.endswith(".cuh") for n in names)
+    assert set(build.SOURCES) <= set(names)
+    seen = {build.library_path(csrc)}
+    for name in names:
+        f = csrc / name
+        text = f.read_text()
+        f.write_text(text + "// edited\n")
+        seen.add(build.library_path(csrc))
+        f.write_text(text)
+    assert len(seen) == len(names) + 1
+    assert build.library_path(csrc) == build.library_path()
