@@ -15,11 +15,13 @@ It imports no jax. Phases, in order; any failure exits non-zero:
                (panel factor + inverse, b in {128, 512, 1024}) on the card
                against their plain-PyTorch versions, K2 and K3 also against
                a float64 factor, K3's |Linv L - I|; NaN on a non-SPD input;
-               for K2 and K3 (one cluster launch per call) the chosen
-               cluster sizes, 20 bitwise-equal repeats, batches of more
-               clusters than the card holds at once and a call on a
-               non-default stream; kernel, plain and library times and each
-               kernel's bound.
+               K1 at every main-path shape (config 4's Grams at N=16,384 by
+               bands of rows and full bitwise symmetry), for all three 20
+               bitwise-equal repeats and a call on a non-default stream; for
+               K2 and K3 (one cluster launch per call) the chosen cluster
+               sizes and batches of more clusters than the card holds at
+               once; kernel, plain and library (K1: a library composite)
+               times, each kernel's bound, and K1's host time per call.
   4. goldens — serve tests/golden/*/state.txt on the card: float64 (library
                path) against expected.txt at rtol 1e-6; float32 (kernel
                path) against the float32 plain-kernel path on the CPU.
@@ -27,7 +29,8 @@ It imports no jax. Phases, in order; any failure exits non-zero:
                emulator (N=512, d=6, t=15, r=4 after PCA), served in-process
                on the kernels (launch counters reset before, read after)
                against float64, then through `interactive_mode` as a
-               subprocess; precompute and predict times and profiles.
+               subprocess; precompute, predict-1024 and predict-1 times and
+               profiles.
   6. config4 — BASELINE config 4 at full width (N=16,384, d=8, power-
                exponential alpha=2, regression_order=1; data as
                bench/bench_large_n.py draws it): left_cholesky on both
@@ -278,7 +281,191 @@ def _cluster_checks(dev, rng) -> None:
           "default stream's")
 
 
-def phase_kernels(dev, rng) -> list:
+# K1 at the main paths' shapes, (route, B, n1, n2, d): config 4's Gram at
+# one theta and at the fit's 2 restarts, its 1,024-query chunk; the slice's
+# Gram, predict-1024 cross and one-query cross.
+K1_SHAPES = (
+    ("gram", 1, 16384, 16384, 8), ("gram", 2, 16384, 16384, 8),
+    ("cross", 1, 16384, 1024, 8),
+    ("gram", 4, 512, 512, 6), ("cross", 4, 512, 1024, 6),
+    ("cross", 4, 512, 1, 6),
+)
+K1_BAND = 256  # rows at the top and the bottom of a large Gram checked
+K1_FULL_CHECK_MAX = 1 << 25  # outputs up to which the plain version runs whole
+
+
+def graph_ms(fn, iters: int = 50) -> float:
+    """Device time of fn() in ms: `iters` calls captured in one CUDA graph,
+    replayed, timed by CUDA events (no host time between the launches)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    t = cuda_ms(g.replay, iters=5, warmup=1) / iters
+    del g
+    return t
+
+
+def host_us(fn, calls: int = 1000, rounds: int = 5) -> float:
+    """Median over `rounds` of the host wall time per call, in us, of
+    `calls` back-to-back calls with no synchronize between them."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per.append((time.perf_counter() - t0) * 1e6 / calls)
+        torch.cuda.synchronize()
+    return float(np.median(per))
+
+
+def _k1_composite(U, V, amp, g, gram):
+    """The library yardstick for the power-exponential K1 (several calls,
+    never used by the port): cdist, squared, then the epilogue in place."""
+    out = torch.cdist(U, V).square_().mul_(-0.5).exp_().mul_(amp[:, None, None])
+    if gram:
+        out.diagonal(dim1=1, dim2=2).add_(g[:, None])
+    return out
+
+
+def _k1_gram_band_err(k1, U, amp, g, G) -> float:
+    """Rows [0, K1_BAND) and [N - K1_BAND, N) of the kernel's Gram G against
+    the plain version on those rows (diag_add at the true diagonal): a check
+    at N = 16,384 without the plain version's N^2 temporaries."""
+    N = U.shape[1]
+    idx = torch.arange(K1_BAND, device=U.device)
+    err = 0.0
+    for r0 in (0, N - K1_BAND):
+        want = k1.pairwise_covariance_plain(
+            U[:, r0:r0 + K1_BAND].contiguous(), U, amp, None,
+            "power_exponential")
+        want[:, idx, r0 + idx] = want[:, idx, r0 + idx] + g[:, None]
+        err = max(err, (G[:, r0:r0 + K1_BAND] - want).abs().max().item())
+    return err
+
+
+def _k1_main_shapes(dev, rng, err_so_far: float) -> dict:
+    """K1 at the main paths' shapes (K1_SHAPES): against the plain version
+    (a band of rows and full bitwise symmetry at N = 16,384), 20 bitwise-equal
+    calls, a non-default stream; the kernel's time (CUDA events over
+    back-to-back calls; for the serve shapes also the device time from a CUDA
+    graph), the plain version's, the library composite's and the bound; the
+    host time per call of the wrapper and of `cross_covariance` at the serve
+    path's query shapes. Returns K1's entry of the kernels JSON line."""
+    from madaiemulator_tpu_torch.ops import kernels
+    from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
+    from madaiemulator_tpu_torch.utils.config import GPConfig
+
+    fam = "power_exponential"
+    k1_err = err_so_far
+    by_shape = {}
+    for route, B, n1, n2, d in K1_SHAPES:
+        gram = route == "gram"
+        label = f"{route}({B},{n1},{n2})d{d}"
+        ls = [0.5 if d == 8 else 0.3] * d
+        U = _points(rng, B, n1, d, ls, dev)
+        V = U if gram else _points(rng, B, n2, d, ls, dev)
+        amp = torch.tensor(rng.uniform(0.5, 2.0, B), dtype=torch.float32,
+                           device=dev)
+        g = torch.tensor(rng.uniform(1e-3, 0.3, B), dtype=torch.float32,
+                         device=dev)
+
+        def kern(U=U, V=V, amp=amp, g=g, gram=gram):
+            return k1.pairwise_covariance(U, V, amp, g, fam, gram)
+
+        def plain(U=U, V=V, amp=amp, g=g, gram=gram):
+            return k1.pairwise_covariance_plain(U, V, amp, g, fam, gram)
+
+        large = B * n1 * n2 > K1_FULL_CHECK_MAX
+        got = kern()
+        torch.cuda.synchronize()
+        require(got.shape == (B, n1, n2), f"K1 {label} shape")
+        if large and gram:
+            err = _k1_gram_band_err(k1, U, amp, g, got)
+        else:
+            err = (got - plain()).abs().max().item()
+        require(err <= K1_ATOL, f"K1 {label} err {err:.3g}")
+        if gram:
+            require(torch.equal(got, got.mT), f"K1 {label} not symmetric")
+        for _ in range(19):
+            require(torch.equal(kern(), got), f"K1 {label}: calls differ")
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            again = kern()
+        side.synchronize()
+        require(torch.equal(again, got), f"K1 {label}: side stream differs")
+        k1_err = max(k1_err, err)
+        del got, again
+        it = 5 if large else 50
+        t = {"ms": cuda_ms(kern, iters=it),
+             "graph_ms": None if large else graph_ms(kern),
+             "plain_ms": cuda_ms(plain, iters=2 if large else 20,
+                                 warmup=1),
+             "composite_ms": cuda_ms(lambda: _k1_composite(U, V, amp, g, gram),
+                                     iters=it)}
+        reads = B * n1 * d + (0 if gram else B * n2 * d) + 2 * B
+        pairs = B * n1 * (n1 + 1) // 2 if gram else B * n1 * n2
+        t["bound_ms"], t["bound_by"] = bound_ms(4 * (reads + B * n1 * n2),
+                                                pairs * (3 * d + 3))
+        t["max_abs_err"] = err
+        by_shape[label] = t
+        print(f"K1 {label}: max_abs_err vs plain {err:.3g} <= {K1_ATOL}"
+              f"{f' (rows 0-{K1_BAND - 1} and the last {K1_BAND})' if large and gram else ''}"
+              f"{'; bitwise symmetric' if gram else ''}; 20 calls bitwise "
+              f"equal; side stream equal; kernel {t['ms']:.4f} ms"
+              f"{'' if t['graph_ms'] is None else ' (device, CUDA graph: %.4f ms)' % t['graph_ms']}"
+              f", plain {t['plain_ms']:.4f} ms, library composite cdist + "
+              f"epilogue {t['composite_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4g} ms ({t['bound_by']}); "
+              f"{t['bound_ms'] / (t['graph_ms'] or t['ms']):.2f} of the bound")
+        del U, V
+        torch.cuda.empty_cache()
+
+    # host time per call at the serve path's query shapes: the wrapper, and
+    # cross_covariance (the layer above it, from the raw query points)
+    cfg = GPConfig(nparams=6, regression_order=1)
+    host = {}
+    for B, n1, n2, d in ((4, 512, 1, 6), (4, 512, 1024, 6)):
+        X1 = torch.tensor(rng.uniform(size=(n1, d)), dtype=torch.float32,
+                          device=dev)
+        X2 = torch.tensor(rng.uniform(size=(n2, d)), dtype=torch.float32,
+                          device=dev)
+        params = kernels.GPParams(
+            log_amp=torch.zeros(B, device=dev),
+            log_nugget=torch.full((B,), -7.0, device=dev),
+            log_ls=torch.full((B, d), float(np.log(0.3)), device=dev))
+        U = kernels._scaled(X1, params, cfg)
+        V = kernels._scaled(X2, params, cfg)
+        amp = torch.exp(params.log_amp)
+        shape = f"({B},{n1},{n2})"
+        host[f"wrapper{shape}"] = host_us(
+            lambda: k1.pairwise_covariance(U, V, amp, None, fam))
+        host[f"cross_covariance{shape}"] = host_us(
+            lambda: kernels.cross_covariance(X1, X2, params, cfg))
+    print("K1 host time per call, us (median of 5 x 1,000 calls, no "
+          "synchronize): " + ", ".join(f"{k} {v:.2f}" for k, v in host.items()))
+
+    main = by_shape["gram(1,16384,16384)d8"]
+    return {"name": "pairwise_covariance", "route": "cuda",
+            "source": "madaiemulator_tpu_torch/csrc/pairwise.cu",
+            "replaces": "madaiemulator_tpu/ops/pallas/pairwise.py:90",
+            "max_abs_err": k1_err, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "composite_ms": main["composite_ms"], "by_shape": by_shape,
+            "host_us": host}
+
+
+def phase_kernels(dev, rng, k1_rng) -> list:
     from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
     from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
     from madaiemulator_tpu_torch.ops.hopper import panel as k3
@@ -313,33 +500,10 @@ def phase_kernels(dev, rng) -> list:
           f"{k1_err:.3g} <= {K1_ATOL}; Grams bitwise symmetric")
 
     Uq = _points(rng, B, n, d, iso, dev)
-    Vq = _points(rng, B, m, d, iso, dev)
-    zero = torch.zeros(B, device=dev)
-    k1_times = {
-        "gram": (
-            cuda_ms(lambda: k1.pairwise_covariance(
-                Uq, Uq, amp, nug, "power_exponential", True)),
-            cuda_ms(lambda: k1.pairwise_covariance_plain(
-                Uq, Uq, amp, nug, "power_exponential", True)),
-        ),
-        "cross": (
-            cuda_ms(lambda: k1.pairwise_covariance(
-                Uq, Vq, amp, zero, "power_exponential")),
-            cuda_ms(lambda: k1.pairwise_covariance_plain(
-                Uq, Vq, amp, zero, "power_exponential")),
-        ),
-    }
-    k1_bounds = {
-        "gram": bound_ms(4 * (B * n * d + 2 * B + B * n * n),
-                         B * n * n * (3 * d + 3)),
-        "cross": bound_ms(4 * (B * n * d + B * m * d + 2 * B + B * n * m),
-                          B * n * m * (3 * d + 3)),
-    }
-    for what, (t_k, t_p) in k1_times.items():
-        shape = f"({B},{n},{n})" if what == "gram" else f"({B},{n},{m})"
-        print(f"K1 time {what} {shape}: kernel {t_k:.4f} ms, plain "
-              f"{t_p:.4f} ms, bound {k1_bounds[what][0]:.5f} ms "
-              f"({k1_bounds[what][1]})")
+    # a (B, m, d) draw, kept so that the later phases' data stay those of
+    # earlier runs of this script
+    _points(rng, B, m, d, iso, dev)
+    k1_entry = _k1_main_shapes(dev, k1_rng, k1_err)
 
     k2_err = 0.0
     for nn in (64, 128, 500, 512, 1024):
@@ -461,17 +625,11 @@ def phase_kernels(dev, rng) -> list:
               f"solve_triangular(L, I) {t3lib:.4f} ms, bound {t3b[0]:.5f} "
               f"ms ({t3b[1]})")
 
-    # bounds at the timed shapes: K1 cross, K2 and K3 (2, 512, 512)
-    k1_bound = k1_bounds["cross"]
+    # bounds at the timed shapes: K2 (4, 512, 512) and K3 (2, 512, 512)
     b3 = 512
     k3_bound = k3_bounds[(Bp, b3)]
     return [
-        {"name": "pairwise_covariance", "route": "cuda",
-         "source": "madaiemulator_tpu_torch/csrc/pairwise.cu",
-         "replaces": "madaiemulator_tpu/ops/pallas/pairwise.py:90",
-         "max_abs_err": k1_err, "ms": k1_times["cross"][0],
-         "plain_ms": k1_times["cross"][1], "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": None},
+        k1_entry,
         {"name": "cholesky", "route": "cuda",
          "source": "madaiemulator_tpu_torch/csrc/cholesky.cu",
          "replaces": "madaiemulator_tpu/ops/pallas/cholesky.py:210",
@@ -690,11 +848,14 @@ def phase_slice(dev, rng, smi) -> dict:
             times[label] = (
                 host_ms(lambda: _vmapped_states(e.params, e.X, e.Z, cfg)),
                 host_ms(lambda: predict_multivariate(e, queries)),
+                host_ms(lambda: predict_multivariate(e, queries[:1]),
+                        iters=50),
             )
             print(f"slice times ({label}, float32, {smi}): serve-state "
                   f"precompute (Gram + Cholesky + GLS, r={r}) "
                   f"{times[label][0]:.3f} ms; predict 1024 queries "
-                  f"{times[label][1]:.3f} ms")
+                  f"{times[label][1]:.3f} ms; predict 1 query "
+                  f"{times[label][2]:.3f} ms")
         profile_once("precompute", lambda: _vmapped_states(
             emu.params, emu.X, emu.Z, emu.config), times["kernels"][0], smi,
             cell="slice")
@@ -1001,7 +1162,7 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     smi = phase_device()
     phase_build()
-    kernels = phase_kernels(dev, rng)
+    kernels = phase_kernels(dev, rng, np.random.default_rng([args.seed, 1]))
     phase_goldens(dev)
     paths = {"serve_multivariate": phase_slice(dev, rng, smi),
              "config4": phase_config4(dev, args.seed, smi)}

@@ -75,6 +75,101 @@ def test_k1_counts_launches_and_rejects(dev):
         k1.pairwise_covariance(U, U, one, one, family="cauchy")
 
 
+def _k1_inputs(rng, B, n1, n2, d, gram):
+    U = _points(rng, B, n1, d)
+    V = U if gram else _points(rng, B, n2, d)
+    amp = torch.tensor(rng.uniform(0.5, 2.0, B), dtype=torch.float32)
+    g = torch.tensor(rng.uniform(1e-3, 0.3, B), dtype=torch.float32)
+    return U, V, amp, g
+
+
+@pytest.mark.parametrize("family", k1.FAMILIES)
+@pytest.mark.parametrize("d", [1, 3, 6, 8, 16, 32, 33, 40])
+def test_k1_every_width(dev, family, d):
+    """Every template width of the kernel and the runtime loop beyond 32
+    (33, 40: two stages), batch 3: on 128-tiles a Gram (triangle route, 135
+    tiles, ragged 1100 = 8 x 128 + 76) and a cross whose n2 = 701 is not a
+    multiple of 4 (4-byte stores); on 64-tiles (128-tiles for fewer than
+    half the SMs) the same at 129 x 129 and 129 x 37."""
+    rng = np.random.default_rng(d)
+    for n1, n2, gram in ((1100, 1100, True), (1100, 701, False),
+                         (129, 129, True), (129, 37, False)):
+        U, V, amp, g = (t.to(dev) for t in _k1_inputs(rng, 3, n1, n2, d, gram))
+        got = k1.pairwise_covariance(U, V, amp, g, family, gram)
+        want = k1.pairwise_covariance_plain(U, V, amp, g, family, gram)
+        torch.cuda.synchronize()
+        assert got.shape == (3, n1, n2)
+        assert (got - want).abs().max().item() <= K1_ATOL * 2.0
+        if gram:
+            assert torch.equal(got, got.mT)
+
+
+@pytest.mark.parametrize("n", [1, 37, 127, 129, 500])
+def test_k1_ragged_sizes(dev, n):
+    """Ragged n on both routes: the Gram, and one query (n2 = 1, the
+    serve path's single request), batch 3."""
+    rng = np.random.default_rng(n)
+    for n2, gram in ((n, True), (1, False)):
+        U, V, amp, g = (t.to(dev) for t in _k1_inputs(rng, 3, n, n2, 6, gram))
+        got = k1.pairwise_covariance(U, V, amp, g, "matern52", gram)
+        want = k1.pairwise_covariance_plain(U, V, amp, g, "matern52", gram)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= K1_ATOL * 2.0
+        if gram:
+            assert torch.equal(got, got.mT)
+
+
+def test_k1_more_tiles_than_the_grid(dev):
+    """(3, 4100, 4100): 33 tile rows, 561 triangle tiles per member, 1,683
+    in all, several per CTA of the persistent grid; and the cross of the
+    same points, 3,267 tiles."""
+    rng = np.random.default_rng(11)
+    U, _, amp, g = (t.to(dev) for t in _k1_inputs(rng, 3, 4100, 4100, 8, True))
+    tri = k1.pairwise_covariance(U, U, amp, g, "power_exponential", True)
+    want = k1.pairwise_covariance_plain(U, U, amp, g, "power_exponential",
+                                        True)
+    torch.cuda.synchronize()
+    assert (tri - want).abs().max().item() <= K1_ATOL * 2.0
+    assert torch.equal(tri, tri.mT)
+    del want
+    # the full route (distinct tensors, same points) gives the same bits:
+    # the mirrored entries are (b - a)^2 sums, equal to (a - b)^2 exactly
+    full = k1.pairwise_covariance(U, U.clone(), amp, g, "power_exponential",
+                                  True)
+    assert torch.equal(tri, full)
+
+
+def test_k1_cross_takes_no_diag_add(dev):
+    U = torch.rand(2, 40, 5, device=dev)
+    V = torch.rand(2, 70, 5, device=dev)
+    amp = torch.ones(2, device=dev)
+    got = k1.pairwise_covariance(U, V, amp, None, "matern32")
+    want = k1.pairwise_covariance_plain(U, V, amp, None, "matern32")
+    assert (got - want).abs().max().item() <= K1_ATOL * 2.0
+    with pytest.raises(ValueError, match="needs diag_add"):
+        k1.pairwise_covariance(U, U, amp, None, "matern32", True)
+
+
+@pytest.mark.parametrize("n1,n2", [(300, 200), (2000, 1000)])
+@pytest.mark.parametrize("gram", [True, False])
+def test_k1_repeat_bitwise_and_side_stream(dev, gram, n1, n2):
+    """20 calls bitwise equal, and a call on a non-default stream equal to
+    them, on 64-tiles (300) and on 128-tiles (2000)."""
+    rng = np.random.default_rng(12)
+    U, V, amp, g = (t.to(dev) for t in _k1_inputs(rng, 4, n1, n2, 8, gram))
+    first = k1.pairwise_covariance(U, V, amp, g, "power_exponential", gram)
+    for _ in range(19):
+        again = k1.pairwise_covariance(U, V, amp, g, "power_exponential", gram)
+        assert torch.equal(first, again)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        got = k1.pairwise_covariance(U, V, amp, g, "power_exponential", gram)
+    side.synchronize()
+    assert torch.equal(first, got)
+
+
 def _grams(rng, B, n, d=6):
     U = _points(rng, B, n, d)
     amp = torch.ones(B)

@@ -64,6 +64,66 @@ def test_plain_k1_batches_components():
         assert torch.equal(out[b], one[0])
 
 
+@pytest.mark.parametrize("family", k1.FAMILIES)
+def test_plain_k1_matches_pallas_interpret_d8(family):
+    """Config 4's width, d = 8: a Gram with the diagonal add, ragged against
+    bm = bn = 16."""
+    U, _ = _k1_inputs(8, 40, 40, 8, gram=True)
+    amp, g = np.float32(0.8), np.float32(0.05)
+    want = pairwise_covariance(
+        jnp.asarray(U), jnp.asarray(U), amp, g, family=family,
+        add_diag=True, bm=16, bn=16, interpret=True,
+    )
+    Ut = torch.from_numpy(U)[None]
+    got = k1.pairwise_covariance(Ut, Ut, torch.tensor([amp]),
+                                 torch.tensor([g]), family, True)[0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+    assert torch.equal(got, got.T)
+
+
+def test_k1_gram_hands_the_wrapper_one_tensor(monkeypatch):
+    """The Gram path passes ONE tensor as U and V (the kernel's triangle
+    route), also when U's batch is broadcast from the parameters; a cross
+    call passes two, even on the same points, and no diag_add; with or
+    without autograd the values are the same."""
+    from madaiemulator_tpu_torch.ops import kernels
+    from madaiemulator_tpu_torch.utils.config import GPConfig
+
+    seen = []
+    real = k1.pairwise_covariance
+
+    def spy(U, V, amp, diag_add, family, add_diag):
+        seen.append((U, V, diag_add, add_diag))
+        return real(U, V, amp, diag_add, family, add_diag)
+
+    monkeypatch.setattr(k1, "pairwise_covariance", spy)
+    rng = np.random.default_rng(9)
+    X = torch.tensor(rng.uniform(size=(30, 4)), dtype=torch.float32)
+    cfg = GPConfig(nparams=4)
+    shared_ls = kernels.GPParams(  # length scales shared: U broadcast
+        log_amp=torch.tensor([0.0, 0.3, -0.2]),
+        log_nugget=torch.full((3,), -4.0),
+        log_ls=torch.full((4,), -1.0))
+    own_ls = shared_ls._replace(log_ls=torch.full((3, 4), -1.0))
+    for p in (shared_ls, own_ls):
+        K = kernels.gram_matrix(X, p, cfg)
+        U, V, g, add = seen[-1]
+        assert V is U and U.shape == (3, 30, 4) and add and g is not None
+        assert torch.equal(K, kernels.gram_matrix(X, own_ls, cfg))
+    kernels.cross_covariance(X, X, own_ls, cfg)
+    U, V, g, add = seen[-1]
+    assert V is not U and g is None and not add
+    # with inputs that need a gradient the autograd.Function runs (its
+    # library-math VJP is tested through the LML gradient) and gives the
+    # same values
+    p = kernels.GPParams(*(t.clone().requires_grad_() for t in own_ls))
+    Kg = kernels.gram_matrix(X, p, cfg)
+    assert seen[-1][1] is seen[-1][0]
+    assert type(Kg.grad_fn).__name__ == "_K1GramBackward"
+    assert torch.equal(Kg.detach(), K)
+
+
 def test_k1_wrapper_routes_cpu_to_plain_and_rejects():
     U = torch.rand(2, 9, 3)
     amp = torch.ones(2)
