@@ -42,17 +42,37 @@ It imports no jax. Phases, in order; any failure exits non-zero:
                closed-form gradient, a 3-step 2-restart fit_gp_host, and
                serving 8,192 queries, each against float64; times, the
                value+grad memory peak and profiles after it.
+  7. config3 — BASELINE config 3 at full width (N=512, d=6, t=15, PCA 0.99
+               -> r components, regression_order=1, power-exponential
+               alpha=2, 4 restarts x 40 LBFGS steps; data as
+               bench/bench_multivariate.py draws it from --seed): the model
+               file written and read, `fit_multivariate` at float32 on K1 +
+               K2 (one lock-step LBFGS over r x 4 lanes), against the same
+               fit at float64 (library) from the same restarts and against
+               a float64 emulator at the same thetas; the CLI as a user runs
+               it (estimate_thetas --dtype float32, print_thetas,
+               interactive_mode on the new snapshot); the fit's times, its
+               objective evaluations per step, one value+grad's wall and
+               profile, K2 at the lane batch against its plain version,
+               float64 and cholesky_ex; then
+               BASELINE configs 1 and 2 estimated at float64 beside their
+               golden thetas (reported, not gated).
 
 The launch counters are set to 0 just before each main path (phase 5's
-serve, phase 6's value+grad -> fit -> serve) and read just after it. Phase 5
-fails if a kernel of its path never launched; phase 6 requires K3 to launch
-exactly once per diagonal panel of every factorization the path makes, and
-K1 once per Gram and per query chunk. Before the last line it prints one
-JSON line with each kernel's launches (`launches_by_path`: each path's own
-count; `launches`: config 4's where that path runs the kernel, else the
-serve path's), its error against the plain version, its time, the plain
-version's, the library call's (null where no single PyTorch call computes
-the function) and its bound; the last line is {"ok": true, "device": ...}.
+serve, phase 6's value+grad -> fit -> serve, phase 7's fit_multivariate)
+and read just after it. Phase 5 fails if a kernel of its path never
+launched; phase 6 requires K3 to launch exactly once per diagonal panel of
+every factorization the path makes, and K1 once per Gram and per query
+chunk; phase 7 requires K1 and K2 to launch exactly once per objective
+evaluation the fit reports, plus once each for the serve precompute. Before
+the last line it prints one JSON line with each kernel's launches
+(`launches_by_path`: each path's own count; `launches`: the config-3 fit's
+where that path runs the kernel, else config 4's, else the serve path's),
+its error against the plain version (the largest over the shapes checked),
+its time, the plain version's, the library call's (null where no single
+PyTorch call computes the function) and its bound (K2 also its error, time
+and cluster size at the fit's lane batch, `fit_batch`); the
+last line is {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -113,6 +133,30 @@ C4_LML_RTOL = 5e-4
 C4_GRAD_RTOL = 1e-2
 # Serving at theta, float32 vs float64: mean scale and prior variance.
 C4_SERVE_TOL = 1e-3
+# Config 3 (bench/bench_multivariate.py:57-75): N=512 heavy-ion-like runs in
+# d=6, t=15 observables, PCA at 0.99, regression_order=1, power-exponential
+# alpha=2, R=4 restarts x 40 LBFGS steps; C3_M queries for the serve gate.
+C3_N, C3_D, C3_T, C3_PCA, C3_R, C3_STEPS, C3_M = 512, 6, 15, 0.99, 4, 40, 1024
+# The float32 fit (kernels) against the float64 fit (library) of the same
+# function (the float32 jitter floor set on both) from the same restarts:
+# each component's float32 best thetas, scored by the float64 LML, fall
+# short of the float64 fit's best LML by at most this fraction of |best|.
+# Measured on the H100: 0.0-3.0e-3 short. The float32 LML itself sits up
+# to 4.1e-3 of the value from the float64 LML at those thetas (nugget at
+# ~1e-8 x amp, under the 3.2e-5 x amp jitter floor: cond ~1.6e7), and from
+# step ~16 on most of the float32 fit's zoom linesearches end at their
+# 20-evaluation cap: the float32 optimizer stops at its objective's
+# resolution.
+C3_LL_RTOL = 5e-3
+# Serving at the fitted thetas, float32 vs float64: mean relative to the
+# mean scale, variance relative to the prior variance. Two components fit a
+# nugget of ~1e-8 x amp, under the 3.2e-5 x amp float32 jitter floor (set on
+# both sides), so the serve factorizations sit at cond ~1.6e7: measured on
+# the H100, the kernel path's mean is 1.6e-3 of the mean scale from float64,
+# the float32 library route's 1.8e-3, and the two float32 routes 1.9e-3
+# apart; the variances 2.7e-6 and 3.9e-6. The mean gate is 2.5e-3, the
+# variance gate phase 5's SLICE_F32_TOL.
+C3_SERVE_MEAN_TOL = 2.5e-3
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 rate and FP32 outside the
 # tensor cores (the kernels run full FP32 FFMA; TF32 is off).
 H100_BYTES_PER_S = 3.35e12
@@ -283,12 +327,13 @@ def _cluster_checks(dev, rng) -> None:
 
 # K1 at the main paths' shapes, (route, B, n1, n2, d): config 4's Gram at
 # one theta and at the fit's 2 restarts, its 1,024-query chunk; the slice's
-# Gram, predict-1024 cross and one-query cross.
+# Gram, predict-1024 cross and one-query cross; config 3's fit Gram (4
+# components x 4 restarts).
 K1_SHAPES = (
     ("gram", 1, 16384, 16384, 8), ("gram", 2, 16384, 16384, 8),
     ("cross", 1, 16384, 1024, 8),
     ("gram", 4, 512, 512, 6), ("cross", 4, 512, 1024, 6),
-    ("cross", 4, 512, 1, 6),
+    ("cross", 4, 512, 1, 6), ("gram", 16, 512, 512, 6),
 )
 K1_BAND = 256  # rows at the top and the bottom of a large Gram checked
 K1_FULL_CHECK_MAX = 1 << 25  # outputs up to which the plain version runs whole
@@ -1149,6 +1194,299 @@ def phase_config4(dev, seed: int, smi: str) -> dict:
     return launches
 
 
+def _heavy_ion_like(rng, n, d, t):
+    """bench/bench_multivariate.py:24-38: a few latent response surfaces
+    mixed into t correlated observables."""
+    X = rng.uniform(size=(n, d))
+    k_lat = 4
+    latents = np.stack(
+        [np.sin(2.5 * X[:, i % d] + 0.7 * i) + (X[:, (i + 1) % d] - 0.4) ** 2
+         for i in range(k_lat)], axis=1)
+    mix = rng.standard_normal((k_lat, t)) * np.geomspace(1.0, 0.2, k_lat)[:, None]
+    return X, latents @ mix + 0.01 * rng.standard_normal((n, t))
+
+
+def _run_cli(args):
+    proc = subprocess.run(
+        [sys.executable, "-m", "madaiemulator_tpu_torch.cli"] + args,
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+def _goldens_estimate(dev) -> None:
+    """BASELINE configs 1 and 2 (tools/make_goldens.py's settings) fitted at
+    float64 on the card from the golden model files: each component's best
+    logL beside the golden state.txt thetas scored by the port's float64
+    LML (reported, not gated: other restarts than the golden fit's)."""
+    from madaiemulator_tpu_torch.io.modelfile import read_model_file
+    from madaiemulator_tpu_torch.io.snapshot import read_snapshot
+    from madaiemulator_tpu_torch.models import gp
+    from madaiemulator_tpu_torch.models.multivariate import fit_multivariate
+    from madaiemulator_tpu_torch.utils.config import CovarianceFamily, GPConfig
+
+    cases = {
+        "sin1d_powerexp": dict(covariance=CovarianceFamily.POWER_EXPONENTIAL,
+                               n_restarts=4, max_opt_steps=80),
+        "scalar4d_matern32": dict(covariance=CovarianceFamily.MATERN32,
+                                  n_restarts=4, max_opt_steps=60),
+    }
+    for name, kw in cases.items():
+        d = ROOT / "tests" / "golden" / name
+        mf = read_model_file(str(d / "model.txt"))
+        cfg = GPConfig(nparams=mf.nparams, regression_order=1, **kw)
+        t0 = time.perf_counter()
+        emu = fit_multivariate(
+            torch.Generator().manual_seed(0),
+            torch.tensor(mf.X, dtype=torch.float64, device=dev),
+            torch.tensor(mf.Y, dtype=torch.float64, device=dev), cfg,
+            pca_variance=0.99)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gold, _, _ = read_snapshot(str(d / "state.txt"), device=dev,
+                                   dtype=torch.float64, build_states=False)
+        with torch.no_grad():
+            ll_gold = gp.log_marginal_likelihood(
+                gold.params, gp.GPData(X=gold.X, y=gold.Z.mT), cfg)
+        best = emu.restart_log_likelihoods.amax(dim=1)
+        print(f"config {name}: estimate_thetas float64 on the card "
+              f"({kw['n_restarts']} restarts x {kw['max_opt_steps']} steps, "
+              f"{wall:.2f} s): best logL {best.tolist()} vs the golden "
+              f"thetas' {ll_gold.tolist()} (port float64 LML)")
+
+
+def phase_config3(dev, seed: int, smi: str) -> dict:
+    """BASELINE config 3 at full width through estimate_thetas' path:
+    model file -> scaling + PCA -> one lock-step LBFGS over (components x
+    restarts) on K1 + K2 -> serve states; against a float64 fit from the
+    same restarts; then the CLI (estimate_thetas, print_thetas,
+    interactive_mode) as subprocesses; times and profiles."""
+    from madaiemulator_tpu_torch.io.modelfile import (
+        read_model_file,
+        write_model_file,
+    )
+    from madaiemulator_tpu_torch.io.snapshot import read_snapshot
+    from madaiemulator_tpu_torch.models import fit, gp
+    from madaiemulator_tpu_torch.models.multivariate import (
+        emulator_from_numpy,
+        fit_multivariate,
+        predict_multivariate,
+    )
+    from madaiemulator_tpu_torch.ops import kernels
+    from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
+    from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
+    from madaiemulator_tpu_torch.utils.config import GPConfig
+
+    failed = []
+
+    def check(ok: bool, what: str) -> None:
+        print(f"config3 check {'ok' if ok else 'FAILED'}: {what}")
+        if not ok:
+            failed.append(what)
+
+    rng = np.random.default_rng(seed)
+    X, Y = _heavy_ion_like(rng, C3_N, C3_D, C3_T)
+    cfg = GPConfig(nparams=C3_D, regression_order=1, n_restarts=C3_R,
+                   max_opt_steps=C3_STEPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        model = str(pathlib.Path(tmp) / "model.txt")
+        write_model_file(model, X, Y)
+        mf = read_model_file(model)
+        pnames, onames = mf.param_names, mf.output_names
+
+        def fit_at(dtype, config):
+            t0 = time.perf_counter()
+            emu = fit_multivariate(
+                torch.Generator().manual_seed(seed),
+                torch.tensor(mf.X, dtype=dtype, device=dev),
+                torch.tensor(mf.Y, dtype=dtype, device=dev), config,
+                pca_variance=C3_PCA)
+            torch.cuda.synchronize()
+            return emu, time.perf_counter() - t0
+
+        # the main path, with the launch counts set to 0 just before it and
+        # read just after: fit_multivariate at float32 on the kernels
+        k1.launches = k2.launches = 0
+        emu, wall = fit_at(torch.float32, cfg)
+        launches = {"pairwise_covariance": k1.launches,
+                    "cholesky": k2.launches}
+        st = emu.fit_stats
+        r = emu.n_components
+        n_evals = st["n_vg_calls"] + st["n_v_calls"]
+        print(f"config3: N={C3_N} d={C3_D} t={C3_T} -> r={r} components "
+              f"(PCA {C3_PCA}), {C3_R} restarts x {C3_STEPS} steps = "
+              f"{r * C3_R} lanes; fit_multivariate float32 {wall:.3f} s wall "
+              f"({smi}); stats {st}")
+        # each objective evaluation is one batched likelihood over the
+        # lanes: one K1 Gram and one K2 factorization; the serve precompute
+        # adds one of each
+        check(launches == {"pairwise_covariance": n_evals + 1,
+                           "cholesky": n_evals + 1},
+              f"fit path launches {launches} = {n_evals} objective "
+              f"evaluations ({st['n_vg_calls']} value+grad, "
+              f"{st['n_v_calls']} value) + 1 serve precompute each")
+        lls32 = emu.restart_log_likelihoods
+        check(bool(torch.isfinite(lls32).all()) and bool(emu.states.ok.all()),
+              f"float32 fit: every restart finite, serve states SPD; best "
+              f"logL {lls32.amax(dim=1).tolist()}")
+
+        # the same fit at float64 on the library path, same restarts, of the
+        # same function: the float32 jitter floor set explicitly
+        jit32 = kernels.effective_jitter_frac(C3_N, torch.float32, cfg)
+        cfg64 = dataclasses.replace(cfg, jitter=jit32)
+        emu64, wall64 = fit_at(torch.float64, cfg64)
+        print(f"config3: fit_multivariate float64 (library) {wall64:.3f} s "
+              f"wall; stats {emu64.fit_stats}")
+        check(emu64.n_components == r, f"float64 PCA keeps r={r}")
+        best64 = emu64.restart_log_likelihoods.amax(dim=1)
+        p32 = kernels.GPParams(*(a.double() for a in emu.params))
+        d64 = gp.GPData(X=emu64.X, y=emu64.Z.mT)
+        with torch.no_grad():
+            ll_at32 = gp.log_marginal_likelihood(p32, d64, cfg64)
+        short = ((best64 - ll_at32) / best64.abs()).tolist()
+        check(all(x <= C3_LL_RTOL for x in short),
+              f"float32 best thetas scored by the float64 LML "
+              f"{ll_at32.tolist()} vs the float64 fit's best "
+              f"{best64.tolist()}: short by {short} x |best| <= {C3_LL_RTOL}"
+              f"; the float32 LML at those thetas "
+              f"{lls32.amax(dim=1).tolist()}")
+
+        # serving: the float32 emulator against a float64 one at the same
+        # thetas and data, with the float32 jitter floor on both; the
+        # float32 library route beside it as the control
+        arrays = dict(
+            mins=emu.scaling.mins, ranges=emu.scaling.ranges, X=emu.X,
+            Z=emu.Z, ymean=emu.pca.ymean, ystd=emu.pca.ystd,
+            eigenvalues=emu.pca.eigenvalues, U=emu.pca.U,
+            log_amp=emu.params.log_amp, log_nugget=emu.params.log_nugget,
+            log_ls=emu.params.log_ls)
+        arrays = {k: v.double().cpu().numpy() for k, v in arrays.items()}
+        ref = emulator_from_numpy(arrays, cfg64, device=dev,
+                                  dtype=torch.float64)
+        lib32 = emulator_from_numpy(
+            arrays, dataclasses.replace(cfg, gram_method="xla",
+                                        cholesky_method="xla"),
+            device=dev, dtype=torch.float32)
+        lo, hi = X.min(0), X.max(0)
+        queries = lo + (hi - lo) * rng.uniform(size=(C3_M, C3_D))
+        mean, var = predict_multivariate(emu, queries)
+        m64, v64 = predict_multivariate(ref, queries)
+        ml, vl = predict_multivariate(lib32, queries)
+        scale = max(1.0, m64.abs().max().item())
+        pv = _prior_var(ref)
+        dm = (mean.double() - m64).abs().max().item() / scale
+        dv = (var.double() - v64).abs().max().item() / pv
+        dml = (ml.double() - m64).abs().max().item() / scale
+        dvl = (vl.double() - v64).abs().max().item() / pv
+        print(f"config3 serve controls at the fitted thetas: float32 library "
+              f"route vs float64 mean {dml:.3g} x scale, var {dvl:.3g} x "
+              f"prior var; kernels vs library route (both float32) mean "
+              f"{(mean - ml).abs().max().item() / scale:.3g} x scale; nugget "
+              f"/ amp {(emu.params.log_nugget - emu.params.log_amp).exp().tolist()}")
+        check(mean.shape == (C3_M, C3_T) and dm <= C3_SERVE_MEAN_TOL
+              and dv <= SLICE_F32_TOL,
+              f"predict {C3_M} queries float32 vs float64 at the same thetas "
+              f"(jitter {jit32:.3g} x amp on both): mean {dm:.3g} x scale <= "
+              f"{C3_SERVE_MEAN_TOL}, var {dv:.3g} x prior var <= "
+              f"{SLICE_F32_TOL} (the float32 library route, not gated: "
+              f"{dml:.3g}, {dvl:.3g})")
+
+        # the CLI on the card, as a user runs it
+        state = str(pathlib.Path(tmp) / "state.txt")
+        t0 = time.perf_counter()
+        rc, _, err = _run_cli(
+            ["estimate_thetas", model, state, "--dtype", "float32",
+             "--device", "cuda", "--regression_order", "1", "--restarts",
+             str(C3_R), "--steps", str(C3_STEPS), "--pca_variance",
+             str(C3_PCA), "--seed", str(seed)])
+        cli_wall = time.perf_counter() - t0
+        check(rc == 0 and pathlib.Path(state).exists(),
+              f"CLI estimate_thetas --dtype float32 exit {rc} in "
+              f"{cli_wall:.2f} s (process start included); stderr: "
+              f"{err.strip()!r}")
+        rc, out, err = _run_cli(["print_thetas", state])
+        check(rc == 0 and out.startswith(f"# {r} component(s)")
+              and len(out.splitlines()) == r + 1,
+              f"CLI print_thetas exit {rc}: {out.splitlines()[:2]}")
+        if pathlib.Path(state).exists():
+            served_emu, _, _ = read_snapshot(state, device=dev,
+                                             dtype=torch.float32)
+            dtheta = max((a - b).abs().max().item() for a, b in
+                         zip(served_emu.params, emu.params))
+            print(f"config3: CLI fit vs in-process fit, max |d log theta| "
+                  f"{dtheta:.3g} (not gated)")
+            batches = [queries[:1], queries[1:64], queries]
+            header = ([f"{C3_D}\n"] + [f"{x}\n" for x in pnames]
+                      + [f"{2 * C3_T}\n"] + [f"mean_{x}\n" for x in onames]
+                      + [f"variance_{x}\n" for x in onames])
+            served = _serve_over_pipe(state, batches, C3_D, C3_T, header)
+            want = np.concatenate(
+                [torch.cat(predict_multivariate(served_emu, b), dim=1)
+                 .cpu().double().numpy() for b in batches])
+            sm = np.abs(served[:, :C3_T] - want[:, :C3_T]).max() / scale
+            sv = np.abs(served[:, C3_T:] - want[:, C3_T:]).max() / pv
+            check(sm <= SERVER_TOL and sv <= SERVER_TOL,
+                  f"interactive_mode on the new snapshot vs in-process "
+                  f"predictions: mean {sm:.3g} x scale, var {sv:.3g} x "
+                  f"prior var <= {SERVER_TOL}")
+
+    # times: the fit, one value+grad over the lanes, K2 at the lane batch
+    print(f"config3 time fit_multivariate float32: {wall:.3f} s; "
+          f"{n_evals / st['n_steps']:.2f} objective evaluations per LBFGS "
+          f"step ({st['linesearch_evals']} linesearch evaluations over "
+          f"{st['n_steps']} steps) ({smi})")
+    lanes = r * C3_R
+    lo_b, hi_b = fit._bounds_arrays(cfg, torch.float32, dev)
+    y = emu.Z.mT[:, None, :].expand(r, C3_R, C3_N).reshape(lanes, C3_N)
+    counts = fit._new_stats()
+    vg, _ = fit._lane_objective(emu.X, y, None, cfg, lo_b, hi_b, counts)
+    best_u = fit._params_to_u(emu.params, lo_b, hi_b)
+    u = torch.cat([best_u.log_amp[:, None], best_u.log_nugget[:, None],
+                   best_u.log_ls], 1).repeat_interleave(C3_R, 0)
+    vg_ms = host_ms(lambda: vg(u), iters=10)
+    print(f"config3 time value+grad over {lanes} lanes: {vg_ms:.3f} ms wall "
+          f"({smi})")
+    profile_once("value_grad", lambda: vg(u), vg_ms, smi, cell="config3")
+    print(f"config3 fit wall split: {n_evals} objective evaluations x "
+          f"{vg_ms:.3f} ms = {n_evals * vg_ms / 1e3:.3f} s of the "
+          f"{wall:.3f} s fit; the rest is the lock-step optimizer's own "
+          f"launches and syncs ({smi})")
+    # K2 at the fit's lane batch (and the cluster size the fit runs it at)
+    # against its plain version and float64 on the same input
+    from madaiemulator_tpu_torch.ops.hopper import build
+
+    A = _gram_batch(rng, lanes, C3_N, 1e-3, dev)
+    L, Lp = k2.cholesky(A), k2.cholesky_plain(A)
+    L64 = torch.linalg.cholesky(A.double())
+    torch.cuda.synchronize()
+    scale = L64.abs().max().item()
+    e64 = (L.double() - L64).abs().max().item()
+    ep = (L - Lp).abs().max().item()
+    csize = build.load().madai_cluster_size(lanes, C3_N)
+    check(torch.equal(L, torch.tril(L)) and e64 <= K2_RTOL * scale
+          and ep <= K2_RTOL * scale,
+          f"K2 at the fit's ({lanes},{C3_N},{C3_N}), cluster size {csize}: "
+          f"lower triangular; max_abs_err vs plain {ep:.3g}, vs float64 "
+          f"{e64:.3g} <= {K2_RTOL} x max|L| {scale:.3g}")
+    k2_fit = {"B": lanes, "n": C3_N, "cluster_size": csize,
+              "max_abs_err": ep, "max_abs_err_f64": e64,
+              "ms": cuda_ms(lambda: k2.cholesky(A)),
+              "graph_ms": graph_ms(lambda: k2.cholesky(A)),
+              "library_ms": cuda_ms(lambda: torch.linalg.cholesky_ex(A)),
+              "library_graph_ms": graph_ms(
+                  lambda: torch.linalg.cholesky_ex(A))}
+    k2_fit["bound_ms"], k2_fit["bound_by"] = bound_ms(
+        4 * (lanes * C3_N * (C3_N + 1) / 2 + lanes * C3_N * C3_N),
+        lanes * C3_N ** 3 / 3)
+    print(f"config3 K2 ({lanes},{C3_N},{C3_N}): kernel {k2_fit['ms']:.4f} ms "
+          f"(device, CUDA graph: {k2_fit['graph_ms']:.4f} ms), "
+          f"torch.linalg.cholesky_ex {k2_fit['library_ms']:.4f} ms (graph "
+          f"{k2_fit['library_graph_ms']:.4f} ms), bound "
+          f"{k2_fit['bound_ms']:.5f} ms ({k2_fit['bound_by']}) ({smi})")
+    _goldens_estimate(dev)
+    require(not failed, f"config3: {len(failed)} checks failed: {failed}")
+    return launches, k2_fit
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1166,10 +1504,16 @@ def main() -> int:
     phase_goldens(dev)
     paths = {"serve_multivariate": phase_slice(dev, rng, smi),
              "config4": phase_config4(dev, args.seed, smi)}
+    paths["config3_fit"], k2_fit = phase_config3(dev, args.seed, smi)
     for k in kernels:
         by_path = {p: c.get(k["name"], 0) for p, c in paths.items()}
         k["launches_by_path"] = by_path
-        k["launches"] = by_path["config4"] or by_path["serve_multivariate"]
+        k["launches"] = (by_path["config3_fit"] or by_path["config4"]
+                         or by_path["serve_multivariate"])
+        if k["name"] == "cholesky":
+            # the error over every checked shape, the fit's lane batch too
+            k["max_abs_err"] = max(k["max_abs_err"], k2_fit["max_abs_err"])
+            k["fit_batch"] = k2_fit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

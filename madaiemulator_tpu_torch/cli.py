@@ -1,5 +1,32 @@
 """`interactive_emulator_torch` command-line tool (port of
-madaiemulator_tpu/cli.py, `interactive_mode` only).
+madaiemulator_tpu/cli.py: `estimate_thetas` on the dense path,
+`interactive_mode`, `print_thetas` and `convert` on the dense text snapshot).
+
+    interactive_emulator_torch estimate_thetas <model_file> <state_file>
+        [--regression_order=N] [--covariance_fn=NAME] [--pca_variance=P]
+        [--restarts=R] [--steps=S] [--seed=K] [--dtype=float64|float32]
+        [--device=cuda|cpu] [--quiet] [--linesearch=zoom|backtracking]
+        [--restart_chunk=C] [--alpha_grid=A1,A2,...] [--alpha_refine=K]
+        [--cholesky_method=pallas|left|xla] [--gram_method=pallas|xla]
+
+trains the multivariate emulator (PCA + one GP per component, every
+component x restart lane in one lock-step LBFGS batch) and writes the text
+snapshot; the flags and defaults are the JAX CLI's, except that
+--cholesky_method and --gram_method default to "pallas" (the Hopper kernels
+at float32). What is not yet ported exits 2 with one line on stderr:
+--fit_method=iterative, --inducing, --noise_file, --gradients_file,
+--update_precision=default|high, --cholesky_method=blocked, the JAX CLI's
+matrix-free and host-fit tuning flags (--rank, --probes, --lanczos_iters,
+--cg_tol, --cg_max_iters, --logdet_method, --checkpoint_path, --vg_batch,
+--inducing_opt_steps, --row_chunk), a MULTIFIDELITY model file, an .npz
+state file.
+
+    interactive_emulator_torch print_thetas <state_file>
+        prints the fitted per-component hyperparameters (natural space).
+
+    interactive_emulator_torch convert <in_state> <out_state>
+        re-encodes a dense text snapshot (byte-identical to the JAX CLI's
+        text output; .npz is not yet ported).
 
     interactive_emulator_torch interactive_mode <state_file>
         [--dtype=float64|float32] [--device=cuda|cpu] [--serve_method=dense]
@@ -11,11 +38,11 @@ nparams, param names, 2*noutputs, then the mean_* / variance_* labels.
 Every complete point already buffered on the pipe is answered in one batched
 call (at most 1024 points per call).
 
---device cuda (the default) needs a CUDA device: without one the tool exits
-2 with "error: CUDA device not available" (it never moves to the CPU by
-itself). At float32 the serve path runs on the Hopper kernels; float64 (the
-default) takes the library path. Also runnable as
-`python -m madaiemulator_tpu_torch.cli`.
+--device cuda (the default) needs a CUDA device: without one
+`estimate_thetas` and `interactive_mode` exit 2 with "error: CUDA device
+not available" (they never move to the CPU by themselves). At float32 the
+fit and the serve path run on the Hopper kernels; float64 (the default)
+takes the library path. Also runnable as `python -m madaiemulator_tpu_torch.cli`.
 """
 
 from __future__ import annotations
@@ -29,6 +56,9 @@ from typing import List, Optional
 import numpy as np
 
 MAX_BATCH = 1024
+_UNPORTED_TUNING = ("rank", "probes", "lanczos_iters", "cg_tol",
+                    "cg_max_iters", "logdet_method", "checkpoint_path",
+                    "vg_batch", "inducing_opt_steps", "row_chunk")
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -37,12 +67,236 @@ def _build_parser() -> argparse.ArgumentParser:
         description="PyTorch/CUDA MADAI-style Gaussian-process emulator",
     )
     sub = p.add_subparsers(dest="command", required=True)
+
+    est = sub.add_parser("estimate_thetas", help="fit hyperparameters")
+    est.add_argument("model_file")
+    est.add_argument("state_file")
+    est.add_argument("--regression_order", type=int, default=0)
+    est.add_argument("--covariance_fn", default="power_exponential")
+    est.add_argument("--pca_variance", type=float, default=0.95)
+    est.add_argument("--restarts", type=int, default=8)
+    est.add_argument("--steps", type=int, default=100)
+    est.add_argument("--seed", type=int, default=0)
+    est.add_argument("--dtype", choices=["float64", "float32"], default="float64")
+    est.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    est.add_argument("--quiet", action="store_true")
+    est.add_argument("--fit_method", choices=["dense", "iterative"],
+                     default="dense",
+                     help="'iterative' is not yet ported")
+    # the JAX CLI's matrix-free / sparse / host-fit tuning flags: nothing in
+    # this port reads them yet, so giving one exits 2
+    for name in _UNPORTED_TUNING:
+        est.add_argument(f"--{name}", default=None, help="not yet ported")
+    est.add_argument(
+        "--restart_chunk", type=int, default=None,
+        help="run optimizer restarts in sequential groups of this size "
+        "(bounds peak memory when N^2 x restarts is large)",
+    )
+    est.add_argument(
+        "--alpha_grid", default=None, metavar="A1,A2,...",
+        help="power-exponential only: profile the kernel exponent over "
+        "this comma-separated grid (one shared alpha; best total logL wins)",
+    )
+    est.add_argument(
+        "--alpha_refine", type=int, default=0, metavar="K",
+        help="with --alpha_grid: K golden-section probes of the continuous "
+        "alpha profile around the grid winner (each probe is one full fit)",
+    )
+    est.add_argument(
+        "--cholesky_method", choices=["xla", "left", "blocked", "pallas"],
+        default="pallas",
+        help="'pallas' (default here): the Hopper kernel K2 at float32; "
+        "'xla': the library; 'left': left-looking blocked; 'blocked' is not "
+        "ported",
+    )
+    est.add_argument(
+        "--gram_method", choices=["xla", "pallas"], default="pallas",
+        help="'pallas' (default here): the Hopper kernel K1 at float32",
+    )
+    est.add_argument(
+        "--update_precision",
+        choices=["auto", "default", "high", "highest"], default="highest",
+        help="'default' and 'high' are not yet ported; 'auto' resolves to "
+        "'highest'",
+    )
+    est.add_argument("--linesearch", choices=["zoom", "backtracking"],
+                     default="zoom")
+    est.add_argument("--noise_file", default=None, help="not yet ported")
+    est.add_argument("--gradients_file", default=None, help="not yet ported")
+    est.add_argument("--inducing", type=int, default=0, metavar="M",
+                     help="not yet ported")
+
     im = sub.add_parser("interactive_mode", help="serve queries over stdin/stdout")
     im.add_argument("state_file")
     im.add_argument("--dtype", choices=["float64", "float32"], default="float64")
     im.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     im.add_argument("--serve_method", choices=["dense"], default="dense")
+
+    pt = sub.add_parser("print_thetas", help="print fitted hyperparameters")
+    pt.add_argument("state_file")
+
+    cvt = sub.add_parser(
+        "convert", help="re-encode a dense text snapshot (text only)")
+    cvt.add_argument("in_state")
+    cvt.add_argument("out_state")
     return p
+
+
+def _error(msg: str) -> int:
+    print(f"error: {msg}", file=sys.stderr)
+    return 2
+
+
+def _unported_flag(args) -> Optional[str]:
+    """The first flag this port cannot honour yet, as an error line."""
+    if args.fit_method == "iterative":
+        return "--fit_method=iterative is not yet ported"
+    if args.inducing:
+        return "--inducing (sparse SGPR) is not yet ported"
+    if args.noise_file:
+        return "--noise_file is not yet ported"
+    if args.gradients_file:
+        return "--gradients_file is not yet ported"
+    for name in _UNPORTED_TUNING:
+        if getattr(args, name) is not None:
+            return f"--{name} is not yet ported"
+    if args.update_precision in ("default", "high"):
+        return f"--update_precision={args.update_precision} is not yet ported"
+    if args.cholesky_method == "blocked":
+        return "--cholesky_method=blocked is not ported; use pallas, left or xla"
+    if args.state_file.endswith(".npz"):
+        return ".npz snapshots are not yet ported"
+    return None
+
+
+def cmd_estimate_thetas(args) -> int:
+    import torch
+
+    from madaiemulator_tpu_torch.io.modelfile import (
+        is_multifidelity_model_file,
+        read_model_file,
+    )
+    from madaiemulator_tpu_torch.io.snapshot import write_snapshot
+    from madaiemulator_tpu_torch.models.multivariate import fit_multivariate
+    from madaiemulator_tpu_torch.utils.config import (
+        COVARIANCE_CLI_NAMES,
+        GPConfig,
+    )
+
+    unported = _unported_flag(args)
+    if unported:
+        return _error(unported)
+    try:
+        cov = COVARIANCE_CLI_NAMES[args.covariance_fn]
+    except KeyError:
+        return _error(f"unknown --covariance_fn={args.covariance_fn!r}; "
+                      f"choose from {sorted(COVARIANCE_CLI_NAMES)}")
+    alpha_grid = None
+    if args.alpha_grid:
+        try:
+            alpha_grid = tuple(float(v) for v in args.alpha_grid.split(",")
+                               if v)
+        except ValueError:
+            return _error(f"bad --alpha_grid={args.alpha_grid!r} "
+                          "(expected comma-separated floats)")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        return _error("CUDA device not available")
+    try:
+        if is_multifidelity_model_file(args.model_file):
+            return _error("MULTIFIDELITY model files are not yet ported")
+        mf = read_model_file(args.model_file)
+    except (OSError, ValueError) as e:
+        return _error(f"{args.model_file}: {e}")
+    dtype = torch.float64 if args.dtype == "float64" else torch.float32
+    dev = torch.device(args.device)
+    try:
+        cfg = GPConfig(
+            nparams=mf.nparams,
+            covariance=cov,
+            regression_order=args.regression_order,
+            n_restarts=args.restarts,
+            max_opt_steps=args.steps,
+            cholesky_method=args.cholesky_method,
+            gram_method=args.gram_method,
+            cholesky_update_precision=args.update_precision,
+            linesearch=args.linesearch,
+        )
+        emu = fit_multivariate(
+            torch.Generator().manual_seed(args.seed),
+            torch.tensor(mf.X, dtype=dtype, device=dev),
+            torch.tensor(mf.Y, dtype=dtype, device=dev),
+            cfg,
+            pca_variance=args.pca_variance,
+            restart_chunk=args.restart_chunk,
+            alpha_grid=alpha_grid,
+            alpha_refine=args.alpha_refine,
+        )
+    except ValueError as e:
+        return _error(str(e))
+    if not args.quiet:
+        lls = emu.restart_log_likelihoods.detach().cpu().double().numpy()
+        for i in range(emu.n_components):
+            best = np.nanmax(np.where(np.isfinite(lls[i]), lls[i], np.nan))
+            print(
+                f"component {i}: best logL = {best:.6g} "
+                f"({np.isfinite(lls[i]).sum()}/{lls.shape[1]} restarts finite)",
+                file=sys.stderr,
+            )
+    write_snapshot(args.state_file, emu, param_names=mf.param_names,
+                   output_names=mf.output_names)
+    if not args.quiet:
+        print(
+            f"wrote {args.state_file}: {emu.n_components} component(s), "
+            f"N={mf.npoints}, d={mf.nparams}, t={mf.noutputs}",
+            file=sys.stderr,
+        )
+    return 0
+
+
+def _read_container(path: str):
+    """(emulator without serve states, param names, output names) of a
+    dense text snapshot, on the CPU in float64."""
+    import torch
+
+    from madaiemulator_tpu_torch.io.snapshot import read_snapshot
+
+    return read_snapshot(path, device=torch.device("cpu"),
+                         dtype=torch.float64, build_states=False)
+
+
+def cmd_print_thetas(args) -> int:
+    try:
+        emu, _, _ = _read_container(args.state_file)
+    except (OSError, ValueError) as e:
+        return _error(f"{args.state_file}: {e}")
+    amp = np.exp(emu.params.log_amp.numpy())
+    nug = np.exp(emu.params.log_nugget.numpy())
+    ls = np.exp(emu.params.log_ls.numpy())
+    print(f"# {emu.n_components} component(s); thetas = "
+          "[amp nugget length_scales...]")
+    for i in range(emu.n_components):
+        row = [amp[i], nug[i], *ls[i]]
+        print(" ".join(f"{v:.17g}" for v in row))
+    return 0
+
+
+def cmd_convert(args) -> int:
+    from madaiemulator_tpu_torch.io.snapshot import write_snapshot
+
+    if args.out_state.endswith(".npz"):
+        return _error(".npz snapshots are not yet ported")
+    try:
+        emu, param_names, output_names = _read_container(args.in_state)
+    except (OSError, ValueError) as e:
+        return _error(f"{args.in_state}: {e}")
+    write_snapshot(args.out_state, emu, param_names=param_names,
+                   output_names=output_names)
+    print(
+        f"wrote {args.out_state}: {emu.n_components} component(s), "
+        f"N={emu.X.shape[0]}, d={emu.X.shape[1]}, t={len(output_names)}",
+        file=sys.stderr,
+    )
+    return 0
 
 
 def cmd_interactive_mode(args) -> int:
@@ -145,9 +399,14 @@ def cmd_interactive_mode(args) -> int:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = _build_parser().parse_args(argv)
+    commands = {
+        "estimate_thetas": cmd_estimate_thetas,
+        "interactive_mode": cmd_interactive_mode,
+        "print_thetas": cmd_print_thetas,
+        "convert": cmd_convert,
+    }
     try:
-        if args.command == "interactive_mode":
-            return cmd_interactive_mode(args)
+        return commands[args.command](args)
     except BrokenPipeError:
         # the pipe consumer went away: the conventional quiet SIGPIPE exit
         try:
@@ -155,7 +414,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         except BrokenPipeError:
             pass
         return 141
-    raise AssertionError(args.command)
 
 
 if __name__ == "__main__":

@@ -146,16 +146,18 @@ def read_snapshot(
     source: Union[str, TextIO],
     device,
     dtype: torch.dtype = torch.float64,
+    build_states: bool = True,
 ) -> Tuple[MultivariateEmulator, List[str], List[str]]:
     """Load a snapshot and rebuild the per-component serve states on
-    `device` (the serve-time precompute). Returns (emulator, param_names,
-    output_names). The config uses the port's defaults, so at float32 the
-    serve path runs on the Hopper kernels."""
+    `device` (the serve-time precompute; skipped when build_states is
+    False). Returns (emulator, param_names, output_names). The config uses
+    the port's defaults, so at float32 the serve path runs on the Hopper
+    kernels."""
     if isinstance(source, str):
         if source.endswith(".npz"):
             raise ValueError(".npz snapshots are not yet ported")
         with open(source, "r") as f:
-            return read_snapshot(f, device, dtype)
+            return read_snapshot(f, device, dtype, build_states)
     toks = _Tokens(source.read())
     first = toks.one()
     if first in _OTHER_MAGICS:
@@ -203,5 +205,6 @@ def read_snapshot(
         power_exp_alpha=alpha,
         predict_variance_includes_nugget=pred_nug,
     )
-    emu = emulator_from_numpy(arrays, cfg, device=device, dtype=dtype)
+    emu = emulator_from_numpy(arrays, cfg, device=device, dtype=dtype,
+                              build_states=build_states)
     return emu, param_names, output_names

@@ -1,11 +1,17 @@
 """Hyperparameter estimation: multi-restart LBFGS over the exact-gradient LML
-(port of madaiemulator_tpu/models/fit.py, host-loop driver).
+(port of madaiemulator_tpu/models/fit.py).
 
-`fit_gp_host` runs the LBFGS two-loop recursion and the Armijo backtracking
-on the host in numpy, vectorized over restarts; only the batched value and
-gradient of the likelihood (`models.gp.log_marginal_likelihood`, closed-form
-backward) runs in torch, on the device of the data. All restarts step in
-lock-step: every device call evaluates the whole restart batch.
+Two fit entry points, as in the JAX package:
+
+- `fit_gp` (and `fit_one_start`, `fit_gp_alpha`): optax's L-BFGS with the
+  zoom (or backtracking) linesearch, ported as a lock-step batch over every
+  lane (`models.lbfgs`). All restarts, and in `fit_multivariate` all
+  (component x restart) lanes, step together: each objective evaluation is
+  one batched value (and gradient) of the likelihood over the lanes, one
+  Gram build by kernel K1 and one factorization by kernel K2 at float32.
+- `fit_gp_host`, for large N: the LBFGS two-loop recursion and
+  Armijo backtracking on the host in numpy, vectorized over restarts; only
+  the batched value and gradient of the likelihood runs in torch.
 
 Restarts are drawn log-uniform inside the configured theta boxes from an
 explicit `torch.Generator` and optimized in an unconstrained u-space mapped
@@ -17,6 +23,7 @@ trajectories.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 import os
@@ -26,6 +33,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from madaiemulator_tpu_torch.models import lbfgs
 from madaiemulator_tpu_torch.models.gp import GPData, log_marginal_likelihood
 from madaiemulator_tpu_torch.ops.kernels import GPParams
 from madaiemulator_tpu_torch.utils.config import GPConfig
@@ -38,9 +46,12 @@ class FitResult(NamedTuple):
     log_likelihood: torch.Tensor  # its LML
     restart_log_likelihoods: torch.Tensor  # (R,) per-restart best LML
     restart_params: GPParams  # (R, ...) per-restart best params
-    # wall-clock breakdown of the host loop: {n_vg_calls, first_vg_wall_s
-    # (kernel build + first run), vg_wall_s (the rest), n_v_calls,
-    # v_wall_s, n_steps, fit_wall_s}
+    # objective evaluations and wall time. fit_gp_host: {n_vg_calls,
+    # first_vg_wall_s (kernel build + first run), vg_wall_s (the rest),
+    # n_v_calls, v_wall_s, n_steps, fit_wall_s}. fit_gp: {n_vg_calls,
+    # n_v_calls (batched value+grad and value-only evaluations, each over
+    # every lane of one restart group), n_steps, linesearch_evals (and
+    # linesearch_evals_by_step), fit_wall_s}
     stats: Optional[dict] = None
 
 
@@ -101,18 +112,87 @@ def sample_restarts(
     )
 
 
+def _flatten_t(p: GPParams) -> torch.Tensor:
+    """(*B, ...) GPParams -> (*B, P) tensor, columns [log_amp, log_nugget,
+    log_ls...] (the JAX ravel_pytree order)."""
+    return torch.cat([p.log_amp[..., None], p.log_nugget[..., None],
+                      p.log_ls], dim=-1)
+
+
 def _flatten(p: GPParams) -> np.ndarray:
-    """(R, ...) GPParams -> (R, P) float64 host matrix, columns
-    [log_amp, log_nugget, log_ls...] (the JAX ravel_pytree order)."""
-    R = p.log_amp.shape[0]
-    return np.concatenate(
-        [np.asarray(t.detach().cpu(), dtype=np.float64).reshape(R, -1)
-         for t in p], axis=1)
+    """(R, ...) GPParams -> (R, P) float64 host matrix."""
+    return _flatten_t(p).detach().cpu().numpy().astype(np.float64)
 
 
 def _unflatten(u: torch.Tensor) -> GPParams:
     """(R, P) tensor -> GPParams with leading axis R."""
     return GPParams(log_amp=u[:, 0], log_nugget=u[:, 1], log_ls=u[:, 2:])
+
+
+def _lane_objective(X, y, noise, config: GPConfig, lo, hi, stats: dict):
+    """Batched objective of (B, P) iterates, lane b fitting targets y[b]
+    (y (N,) is shared by every lane): (value_and_grad, value) closures over
+    -log_marginal_likelihood, counting their calls in `stats`."""
+    data = GPData(X=X, y=y, noise=noise)
+
+    def negll(u):
+        return -log_marginal_likelihood(_u_to_params(_unflatten(u), lo, hi),
+                                        data, config)
+
+    def value_and_grad(u):
+        u = u.detach().requires_grad_(True)
+        f = negll(u)
+        (g,) = torch.autograd.grad(f.sum(), u)
+        stats["n_vg_calls"] += 1
+        return f.detach(), g
+
+    def value(u):
+        with torch.no_grad():
+            f = negll(u)
+        stats["n_v_calls"] += 1
+        return f
+
+    return value_and_grad, value
+
+
+def _new_stats() -> dict:
+    return {"n_vg_calls": 0, "n_v_calls": 0, "n_steps": 0,
+            "linesearch_evals": 0, "fit_wall_s": 0.0}
+
+
+def fit_one_start(
+    u0: GPParams,
+    X: torch.Tensor,
+    y: torch.Tensor,
+    config: GPConfig,
+    max_steps: int,
+    noise: torch.Tensor | None = None,
+    stats: dict | None = None,
+) -> Tuple[GPParams, torch.Tensor]:
+    """LBFGS trajectories from a batch of unconstrained starts u0 (leading
+    lane axis B), all in lock step (`models.lbfgs.run_lbfgs`, optax's
+    algorithm with `config.linesearch`). y is (N,) shared by every lane, or
+    (B, N), one target vector per lane; noise likewise. The JAX function
+    runs one start and is vmapped by its callers; this one takes the batch.
+    Returns (best_u, best_neg_loglik (B,)) in u0's dtype. The JAX
+    function's h_extra and gradient blocks are not yet ported.
+    `stats`, when given, accumulates the objective evaluation counts.
+    """
+    dtype = y.dtype
+    lo, hi = _bounds_arrays(config, dtype, X.device)
+    stats = _new_stats() if stats is None else stats
+    vg, v = _lane_objective(X, y, noise, config, lo, hi, stats)
+    res = lbfgs.run_lbfgs(
+        _flatten_t(u0).to(device=X.device, dtype=dtype), vg, v, max_steps,
+        segments=(1, 1, config.num_length_scales),
+        linesearch=config.linesearch,
+    )
+    stats["n_steps"] += max_steps
+    stats["linesearch_evals"] += sum(res.linesearch_evals)
+    by_step = stats.setdefault("linesearch_evals_by_step", [0] * max_steps)
+    for k, n in enumerate(res.linesearch_evals):
+        by_step[k] += n
+    return _unflatten(res.best_u), res.best_value.to(dtype)
 
 
 def fit_gp_host(
@@ -408,4 +488,244 @@ def fit_gp_host(
         restart_log_likelihoods=torch.as_tensor(lls, dtype=dtype),
         restart_params=stacked,
         stats=stats,
+    )
+
+
+def _fit_components(
+    generator: torch.Generator,
+    X: torch.Tensor,
+    Y: torch.Tensor,
+    config: GPConfig,
+    n_restarts: int | None = None,
+    max_steps: int | None = None,
+    restart_chunk: int | None = None,
+    noise: torch.Tensor | None = None,
+) -> FitResult:
+    """`fit_gp` for r GPs on one design at once: Y (r, N) holds each
+    component's targets (noise, if given, (r, N) its noise variances). The
+    (r x R) lanes run as one lock-step batch, or in groups of restart_chunk
+    restarts of every component. Every FitResult field carries the
+    component axis in front: params (r, ...), log_likelihood (r,),
+    restart_log_likelihoods (r, R), restart_params (r, R, ...)."""
+    R = config.n_restarts if n_restarts is None else n_restarts
+    steps = config.max_opt_steps if max_steps is None else max_steps
+    r, N = Y.shape
+    dtype = Y.dtype
+    dev = X.device
+    lo, hi = _bounds_arrays(config, dtype, dev)
+    t0 = time.perf_counter()
+    stats = _new_stats()
+    # one draw per component, in component order
+    u0 = torch.stack([
+        _flatten_t(sample_restarts(generator, config, R, dtype=dtype))
+        for _ in range(r)
+    ]).to(device=dev, dtype=dtype)  # (r, R, P)
+    P = u0.shape[-1]
+
+    def lanes(t, k):  # (r, N) -> (r * k, N): each component's row k times
+        return None if t is None else t[:, None, :].expand(r, k, N).reshape(
+            r * k, N)
+
+    # Rescue dead draws (JAX fit.py:637-666): in float32 a smooth-kernel
+    # Gram is only factorable in part of theta space, and a start at -inf
+    # has a NaN gradient that kills its trajectory. One batched objective
+    # value finds dead starts; they are remapped to stratified
+    # moment-matched fallbacks (amp = var(y), short length scales, real
+    # nuggets) that factor at working precision.
+    _, value = _lane_objective(X, lanes(Y, R), lanes(noise, R), config, lo,
+                               hi, stats)
+    v0 = value(u0.reshape(r * R, P)).reshape(r, R)
+    amp_fb = torch.clamp(Y.var(dim=-1, unbiased=False),
+                         config.amp_bounds[0] * 10, config.amp_bounds[1] / 10)
+    frac = (torch.arange(R, dtype=dtype, device=dev) + 0.5) / R
+    ls_fb = torch.exp(math.log(0.05)
+                      + frac * (math.log(0.5) - math.log(0.05)))
+    nug_fb = torch.exp(math.log(1e-4)
+                       + frac * (math.log(1e-1) - math.log(1e-4)))
+    k = config.num_length_scales
+    fb = GPParams(
+        log_amp=torch.log(amp_fb)[:, None].expand(r, R),
+        log_nugget=torch.log(nug_fb[None, :] * amp_fb[:, None]),
+        log_ls=torch.log(ls_fb)[None, :, None].expand(r, R, k),
+    )
+    u_fb = _flatten_t(_params_to_u(fb, lo, hi))
+    u0 = torch.where(torch.isfinite(v0)[..., None], u0, u_fb)
+
+    chunk = R if restart_chunk is None or restart_chunk >= R else restart_chunk
+    if R % chunk != 0:
+        raise ValueError(
+            f"n_restarts={R} not divisible by restart_chunk={chunk}")
+    best_u = torch.empty_like(u0)
+    best_negll = torch.empty((r, R), dtype=dtype, device=dev)
+    for g0 in range(0, R, chunk):
+        bu, bv = fit_one_start(
+            _unflatten(u0[:, g0:g0 + chunk].reshape(r * chunk, P)), X,
+            lanes(Y, chunk), config, steps, noise=lanes(noise, chunk),
+            stats=stats)
+        best_u[:, g0:g0 + chunk] = _flatten_t(bu).reshape(r, chunk, P)
+        best_negll[:, g0:g0 + chunk] = bv.reshape(r, chunk)
+    stats["n_steps"] = steps
+
+    best_params_all = _u_to_params(_unflatten(best_u.reshape(r * R, P)),
+                                   lo, hi)
+    best_params_all = GPParams(*(a.reshape((r, R) + a.shape[1:])
+                                 for a in best_params_all))
+    lls = -best_negll
+    i = torch.argmax(torch.where(torch.isfinite(lls), lls, -torch.inf),
+                     dim=-1)
+    rows = torch.arange(r, device=dev)
+    stats["fit_wall_s"] = time.perf_counter() - t0
+    return FitResult(
+        params=GPParams(*(a[rows, i] for a in best_params_all)),
+        log_likelihood=lls[rows, i],
+        restart_log_likelihoods=lls,
+        restart_params=best_params_all,
+        stats=stats,
+    )
+
+
+def fit_gp(
+    generator: torch.Generator,
+    data: GPData,
+    config: GPConfig,
+    n_restarts: int | None = None,
+    max_steps: int | None = None,
+    restart_chunk: int | None = None,
+) -> FitResult:
+    """Estimate hyperparameters: the `estimate_thetas` equivalent.
+
+    Draws n_restarts starts with `sample_restarts(generator, ...)`, rescues
+    dead ones (non-finite objective) to moment-matched fallbacks with one
+    batched objective value, runs every restart's LBFGS in one lock-step
+    batch (`fit_one_start`; restart_chunk runs them in sequential groups of
+    that size, bounding peak memory at large N) and keeps the best finite
+    log-likelihood. `stats` counts the objective evaluations: each one is a
+    single batched likelihood over the group's lanes (one K1 Gram build and
+    one K2 factorization at float32 on the card)."""
+    res = _fit_components(
+        generator, data.X, data.y[None], config, n_restarts=n_restarts,
+        max_steps=max_steps, restart_chunk=restart_chunk,
+        noise=None if data.noise is None else data.noise[None])
+    return FitResult(
+        params=GPParams(*(a[0] for a in res.params)),
+        log_likelihood=res.log_likelihood[0],
+        restart_log_likelihoods=res.restart_log_likelihoods[0],
+        restart_params=GPParams(*(a[0] for a in res.restart_params)),
+        stats=res.stats,
+    )
+
+
+class AlphaFitResult(NamedTuple):
+    """Result of the power-exponent profile search (fit_gp_alpha)."""
+
+    result: FitResult  # the winning alpha's full fit
+    alpha: float  # the winning exponent
+    alphas: Tuple[float, ...]  # every exponent evaluated (grid + refinement)
+    alpha_log_likelihoods: Tuple[float, ...]  # best LML per evaluated alpha
+
+
+# Valid exponent range for the power-exponential kernel: alpha in (0, 2];
+# below ~0.1 the Gram is numerically diagonal and the profile flat.
+_ALPHA_MIN, _ALPHA_MAX = 0.1, 2.0
+
+
+def _golden_refine_alpha(eval_fn, evals: dict, best_alpha: float, iters: int):
+    """Golden-section search MAXIMIZING eval_fn over the bracket formed by
+    the winning grid point's neighbours (the profile LML is locally
+    unimodal around a grid winner). Each probe is one full multi-restart
+    fit; results land in `evals` (alpha -> best LML). Returns the best
+    alpha after refinement."""
+    grid = sorted(evals)
+    i = grid.index(best_alpha)
+    step = grid[1] - grid[0] if len(grid) > 1 else 0.3
+    lo = grid[i - 1] if i > 0 else max(_ALPHA_MIN, best_alpha - step)
+    step = grid[-1] - grid[-2] if len(grid) > 1 else 0.3
+    hi = grid[i + 1] if i + 1 < len(grid) else min(_ALPHA_MAX,
+                                                   best_alpha + step)
+    if hi - lo < 1e-6:
+        return best_alpha
+    g = (math.sqrt(5.0) - 1.0) / 2.0
+
+    def probe(a):
+        a = round(float(a), 6)
+        if a not in evals:
+            evals[a] = eval_fn(a)
+        return evals[a]
+
+    x1 = hi - g * (hi - lo)
+    x2 = lo + g * (hi - lo)
+    f1, f2 = probe(x1), probe(x2)
+    for _ in range(max(0, iters - 2)):
+        if f1 < f2:  # the maximum is in [x1, hi]
+            lo, x1, f1 = x1, x2, f2
+            x2 = lo + g * (hi - lo)
+            f2 = probe(x2)
+        else:  # the maximum is in [lo, x2]
+            hi, x2, f2 = x2, x1, f1
+            x1 = hi - g * (hi - lo)
+            f1 = probe(x1)
+    finite = {a: v for a, v in evals.items() if math.isfinite(v)}
+    return max(finite, key=finite.get) if finite else best_alpha
+
+
+def _profile_alpha(eval_alpha, alphas, refine_iters: int):
+    """The grid over alpha, then golden-section refinement of its winner:
+    (best alpha, evals {alpha: best total LML})."""
+    evals: dict = {}
+    best_alpha, best_ll = None, -math.inf
+    for a in alphas:
+        a = round(float(a), 6)
+        evals[a] = eval_alpha(a)
+        if best_alpha is None or (math.isfinite(evals[a])
+                                  and evals[a] > best_ll):
+            best_alpha, best_ll = a, evals[a]
+    if refine_iters > 0 and math.isfinite(best_ll):
+        best_alpha = _golden_refine_alpha(eval_alpha, evals, best_alpha,
+                                          refine_iters)
+    return best_alpha, evals
+
+
+def generator_copy(generator: torch.Generator) -> torch.Generator:
+    """A generator in the same state: each profile point draws the same
+    restarts, as the JAX package reuses one PRNG key."""
+    g = torch.Generator(device=generator.device)
+    g.set_state(generator.get_state())
+    return g
+
+
+def fit_gp_alpha(
+    generator: torch.Generator,
+    data: GPData,
+    config: GPConfig,
+    alphas: Tuple[float, ...] = (1.2, 1.5, 1.8, 2.0),
+    refine_iters: int = 0,
+    **fit_kwargs,
+) -> AlphaFitResult:
+    """Fit with a trainable power-exponential exponent by profile
+    likelihood: one full multi-restart `fit_gp` per grid value (the same
+    restarts each time), the best wins; refine_iters > 0 adds that many
+    golden-section probes of the continuous profile inside the winner's
+    bracket. Power-exponential only. fit_kwargs go to fit_gp."""
+    from madaiemulator_tpu_torch.utils.config import CovarianceFamily
+
+    if config.covariance is not CovarianceFamily.POWER_EXPONENTIAL:
+        raise ValueError(
+            "fit_gp_alpha applies to the power-exponential family only; "
+            f"got {config.covariance}"
+        )
+    results: dict = {}
+
+    def eval_alpha(a: float) -> float:
+        cfg_a = dataclasses.replace(config, power_exp_alpha=float(a))
+        res = fit_gp(generator_copy(generator), data, cfg_a, **fit_kwargs)
+        results[round(float(a), 6)] = res
+        return float(res.log_likelihood)
+
+    best_alpha, evals = _profile_alpha(eval_alpha, alphas, refine_iters)
+    order = sorted(evals)
+    return AlphaFitResult(
+        result=results[best_alpha],
+        alpha=best_alpha,
+        alphas=tuple(order),
+        alpha_log_likelihoods=tuple(evals[a] for a in order),
     )

@@ -1,10 +1,12 @@
-"""Multivariate-output emulation via PCA + per-component GPs, serve part
-(port of madaiemulator_tpu/models/multivariate.py).
+"""Multivariate-output emulation via PCA + per-component GPs (port of
+madaiemulator_tpu/models/multivariate.py): `fit_multivariate` trains, the
+rest serves.
 
 The r component GPs share the scaled design X and run as one batch: their
 hyperparameters, serve states and predictions carry a leading (r,) axis
-(JAX vmaps over it). Prediction rotates the per-component (mean, variance)
-back to the t observables:
+(JAX vmaps over it). The fit runs every (component x restart) lane in one
+lock-step LBFGS batch (`models.fit`). Prediction rotates the per-component
+(mean, variance) back to the t observables:
 
     mean_j = ybar_j + s_j * sum_i sqrt(lambda_i) U_ji m_i
     var_j  = s_j^2  * sum_i lambda_i  U_ji^2 v_i
@@ -12,11 +14,14 @@ back to the t observables:
 
 from __future__ import annotations
 
+import dataclasses
+import logging
 from typing import Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from madaiemulator_tpu_torch.models import fit as _fit
 from madaiemulator_tpu_torch.models.gp import (
     GPData,
     GPPosteriorState,
@@ -24,8 +29,14 @@ from madaiemulator_tpu_torch.models.gp import (
     predict_from_precomputed,
 )
 from madaiemulator_tpu_torch.ops.kernels import GPParams
-from madaiemulator_tpu_torch.utils.config import GPConfig
-from madaiemulator_tpu_torch.utils.designs import DesignScaling, apply_scaling
+from madaiemulator_tpu_torch.utils.config import CovarianceFamily, GPConfig
+from madaiemulator_tpu_torch.utils.designs import (
+    DesignScaling,
+    apply_scaling,
+    fit_scaling,
+)
+
+logger = logging.getLogger("madaiemulator_tpu_torch")
 
 
 class PCAState(NamedTuple):
@@ -38,10 +49,13 @@ class PCAState(NamedTuple):
 class MultivariateEmulator(NamedTuple):
     """A trained multivariate emulator: snapshot payload + serve states.
 
-    `noise` (optional, (N, r)) holds per-point observation-noise variances
-    projected to PC-score space, the diagonal each component's Gram was
-    built with. (The JAX container's fit log and gradient blocks are not
-    yet ported.)
+    `restart_log_likelihoods` (optional, (r, R)) is the fit's per-restart
+    best LML of each component and `fit_stats` its objective-evaluation
+    counts (`models.fit.FitResult.stats`); both are None for an emulator
+    read from a snapshot. `noise` (optional, (N, r)) holds per-point observation-noise
+    variances projected to PC-score space, the diagonal each component's
+    Gram was built with. (The JAX container's gradient blocks are not yet
+    ported.)
     """
 
     scaling: DesignScaling
@@ -51,7 +65,9 @@ class MultivariateEmulator(NamedTuple):
     params: GPParams  # batched (r, ...) per-component hyperparameters
     states: GPPosteriorState  # batched (r, ...) serve states
     config: GPConfig
+    restart_log_likelihoods: Optional[torch.Tensor] = None  # (r, R)
     noise: Optional[torch.Tensor] = None  # (N, r)
+    fit_stats: Optional[dict] = None  # the fit's FitResult.stats
 
     @property
     def n_components(self) -> int:
@@ -98,6 +114,48 @@ def pca_decompose(
     return PCAState(ymean=ymean, ystd=ystd, eigenvalues=lam_r, U=U_r), Z
 
 
+def project_scores(Y, pca: PCAState, dtype=None) -> torch.Tensor:
+    """PC scores of new output rows (N, t) under an existing PCA basis:
+    z = ((y - ymean) / ystd) @ U / sqrt(lambda), the map pca_decompose bakes
+    into its Z. pca's fields may be numpy arrays or tensors; the result is
+    a tensor on Y's device (Y a tensor) or the CPU."""
+    Y = torch.as_tensor(Y)
+    if dtype is not None:
+        Y = Y.to(dtype)
+    t = np.shape(pca.ymean)[0]
+    if Y.ndim != 2 or Y.shape[1] != t:
+        raise ValueError(f"outputs must be (N, t={t}); got {tuple(Y.shape)}")
+
+    def f(a):
+        return torch.as_tensor(a).to(device=Y.device, dtype=Y.dtype)
+
+    lam = torch.clamp(f(pca.eigenvalues), min=torch.finfo(Y.dtype).tiny)
+    Yc = (Y - f(pca.ymean)[None, :]) / f(pca.ystd)[None, :]
+    return (Yc @ f(pca.U)) / torch.sqrt(lam)[None, :]
+
+
+def _component_batch(X: torch.Tensor, Z: torch.Tensor,
+                     noise_pc: Optional[torch.Tensor] = None) -> GPData:
+    """The r component GPs as one batched GPData: y (r, N) holds each
+    component's scores, noise (r, N) its PC-space noise variances."""
+    return GPData(X=X, y=Z.mT, noise=None if noise_pc is None else noise_pc.mT)
+
+
+def _vmapped_fit(
+    generator: torch.Generator, X: torch.Tensor, Z: torch.Tensor,
+    config: GPConfig, restart_chunk: Optional[int] = None,
+    noise_pc: Optional[torch.Tensor] = None, **fit_kwargs,
+) -> _fit.FitResult:
+    """`fit_gp` of every component at once (the JAX package vmaps it over
+    the component axis): the (r x R) lanes step in one lock-step LBFGS.
+    Each component's restarts come from one `sample_restarts` call, in
+    component order. FitResult fields carry the component axis in front."""
+    data = _component_batch(X, Z, noise_pc)
+    return _fit._fit_components(generator, X, data.y, config,
+                                restart_chunk=restart_chunk,
+                                noise=data.noise, **fit_kwargs)
+
+
 def _vmapped_states(
     params: GPParams, X: torch.Tensor, Z: torch.Tensor, config: GPConfig,
     noise_pc: Optional[torch.Tensor] = None,
@@ -105,8 +163,8 @@ def _vmapped_states(
     """Per-component serve states as ONE batched build over (r, N, N): Gram,
     factorization and GLS solves for every component at once, with the
     per-component jitter ladder of `precompute_predictor`."""
-    data = GPData(X=X, y=Z.mT, noise=None if noise_pc is None else noise_pc.mT)
-    return precompute_predictor(params, data, config)
+    return precompute_predictor(params, _component_batch(X, Z, noise_pc),
+                                config)
 
 
 def _predict_components(
@@ -148,14 +206,121 @@ def predict_multivariate(
     return reconstruct_observables(m_pc, v_pc, emu.pca)
 
 
+def fit_multivariate(
+    generator: torch.Generator,
+    X_raw: torch.Tensor,
+    Y: torch.Tensor,
+    config: GPConfig,
+    pca_variance: float = 0.95,
+    standardize: bool = True,
+    param_ranges: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    restart_chunk: Optional[int] = None,
+    alpha_grid: Optional[Tuple[float, ...]] = None,
+    alpha_refine: int = 0,
+    noise=None,
+    gradients=None,
+    gradient_noise=None,
+) -> MultivariateEmulator:
+    """Train a multivariate emulator (the `estimate_thetas` dense path).
+
+    X_raw (N, d) is the unscaled design and Y (N, t) the observables, both
+    tensors on the device to train on, in the training dtype. The design is
+    scaled to the unit box (or by param_ranges), Y is reduced by PCA on the
+    host to the r components covering pca_variance, every component's GP
+    is fitted in one lock-step batch over (component x restart) lanes
+    (`_vmapped_fit`), and the serve states are built for the best thetas.
+
+    alpha_grid (power-exponential only) profiles the kernel exponent: the
+    whole fit runs once per grid value, with the same restarts, and the
+    emulator with the best total LML (sum over components of the best
+    restart) wins; alpha_refine > 0 adds that many golden-section probes
+    around the grid winner (`models.fit._golden_refine_alpha`).
+
+    noise, gradients and gradient_noise are not yet ported and raise
+    NotImplementedError.
+    """
+    if noise is not None:
+        raise NotImplementedError(
+            "fit_multivariate: observation noise (noise=) is not yet ported")
+    if gradients is not None or gradient_noise is not None:
+        raise NotImplementedError(
+            "fit_multivariate: gradient observations (gradients=) are not "
+            "yet ported")
+    if alpha_grid:
+        if config.covariance is not CovarianceFamily.POWER_EXPONENTIAL:
+            raise ValueError(
+                "alpha_grid applies to the power-exponential family only"
+            )
+        emus: dict = {}
+
+        def eval_alpha(a: float) -> float:
+            cfg_a = dataclasses.replace(config, power_exp_alpha=float(a))
+            emu_a = fit_multivariate(
+                _fit.generator_copy(generator), X_raw, Y, cfg_a,
+                pca_variance=pca_variance, standardize=standardize,
+                param_ranges=param_ranges, restart_chunk=restart_chunk,
+            )
+            lls = emu_a.restart_log_likelihoods
+            best = torch.where(torch.isfinite(lls), lls, -torch.inf)
+            total = float(best.amax(dim=1).sum())
+            logger.info("alpha_grid: alpha=%g total best logL=%.6g", a, total)
+            emus[round(float(a), 6)] = emu_a
+            return total
+
+        best_a, _ = _fit._profile_alpha(eval_alpha, alpha_grid, alpha_refine)
+        if alpha_refine > 0:
+            logger.info("alpha_refine: winner alpha=%g", best_a)
+        return emus[best_a]
+    scaling = fit_scaling(X_raw, ranges=param_ranges)
+    X = apply_scaling(X_raw, scaling)
+    pca_np, Z_np = pca_decompose(Y.detach().cpu().numpy(), pca_variance,
+                                 standardize=standardize)
+
+    def dev(a):
+        return torch.as_tensor(a).to(device=X.device)
+
+    pca = PCAState(*(dev(a) for a in pca_np))
+    Z = dev(Z_np).to(X.dtype)
+    logger.info(
+        "fit_multivariate: N=%d d=%d t=%d -> r=%d components "
+        "(pca_variance=%g)", X.shape[0], X.shape[1], Y.shape[1], Z.shape[1],
+        pca_variance,
+    )
+    fit = _vmapped_fit(generator, X, Z, config, restart_chunk=restart_chunk)
+    states = _vmapped_states(fit.params, X, Z, config)
+    lls = fit.restart_log_likelihoods.detach().cpu().numpy()
+    for i in range(Z.shape[1]):
+        finite = np.isfinite(lls[i])
+        if not finite.any():
+            logger.warning(
+                "fit_multivariate: component %d/%d has NO feasible restart "
+                "(every LML = -inf) — its thetas are an unoptimized "
+                "fallback and its predictions will be garbage.",
+                i, Z.shape[1],
+            )
+        else:
+            logger.info(
+                "  component %d: best logL %.6g (%d/%d restarts finite)",
+                i, float(lls[i][finite].max()), int(finite.sum()),
+                lls.shape[1],
+            )
+    return MultivariateEmulator(
+        scaling=scaling, X=X, Z=Z, pca=pca, params=fit.params, states=states,
+        config=config, restart_log_likelihoods=fit.restart_log_likelihoods,
+        fit_stats=fit.stats,
+    )
+
+
 def emulator_from_numpy(
     arrays: Mapping[str, np.ndarray],
     config: GPConfig,
     device,
     dtype: torch.dtype = torch.float64,
+    build_states: bool = True,
 ) -> MultivariateEmulator:
     """Build the port's emulator from a trained state held as numpy arrays,
-    rebuilding the serve states on `device`.
+    rebuilding the serve states on `device` (states None when build_states
+    is False: the container alone, for re-encoding or printing).
 
     Keys (the leaves of a JAX `MultivariateEmulator`): mins, ranges (d,);
     X (N, d) scaled design; Z (N, r); ymean, ystd (t,); eigenvalues (r,);
@@ -172,7 +337,8 @@ def emulator_from_numpy(
                       log_ls=t("log_ls"))
     X, Z = t("X"), t("Z")
     noise = t("noise") if arrays.get("noise") is not None else None
-    states = _vmapped_states(params, X, Z, config, noise_pc=noise)
+    states = (_vmapped_states(params, X, Z, config, noise_pc=noise)
+              if build_states else None)
     return MultivariateEmulator(
         scaling=scaling, X=X, Z=Z, pca=pca, params=params, states=states,
         config=config, noise=noise,

@@ -1,4 +1,5 @@
-"""Design-matrix scaling (port of madaiemulator_tpu/utils/designs.py).
+"""Design-matrix scaling and Latin-hypercube designs (port of
+madaiemulator_tpu/utils/designs.py).
 
 The design is scaled to the unit hypercube before fitting; the scaling
 (per-dimension min and range) is part of the snapshot so queries map the
@@ -34,3 +35,20 @@ def fit_scaling(
 
 def apply_scaling(X: torch.Tensor, s: DesignScaling) -> torch.Tensor:
     return (X - s.mins[None, :]) / s.ranges[None, :]
+
+
+def unapply_scaling(Xs: torch.Tensor, s: DesignScaling) -> torch.Tensor:
+    return Xs * s.ranges[None, :] + s.mins[None, :]
+
+
+def latin_hypercube(
+    generator: torch.Generator, n: int, d: int, dtype=torch.float64
+) -> torch.Tensor:
+    """Latin hypercube sample on [0,1]^d, (n, d), on the CPU from
+    `generator`: one point per axis stratum, the strata independently
+    permuted per dimension (the standard space-filling design for emulator
+    training runs)."""
+    perms = torch.stack([torch.randperm(n, generator=generator)
+                         for _ in range(d)])  # (d, n)
+    u = torch.rand((d, n), generator=generator, dtype=dtype)
+    return ((perms.to(dtype) + u) / n).T

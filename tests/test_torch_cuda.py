@@ -378,3 +378,63 @@ def test_large_n_factor_goes_through_k3(dev):
     assert bool(st.ok) and bool(ref.ok)
     scale = ref.L.abs().max().item()
     assert (st.L - ref.L).abs().max().item() <= K2_RTOL * scale
+
+
+@pytest.mark.parametrize("B", [16, 20])
+def test_k2_at_the_fit_batch(dev, B):
+    """K2 at the config-3 fit's (components x restarts, 512, 512) batches
+    against its plain version and float64."""
+    rng = np.random.default_rng(B)
+    A = _grams(rng, B, 512)
+    Ad = A.to(dev)
+    L = k2.cholesky(Ad)
+    Lp = k2.cholesky_plain(Ad)
+    L64 = torch.linalg.cholesky(A.double())
+    torch.cuda.synchronize()
+    scale = L64.abs().max().item()
+    assert (L.cpu().double() - L64).abs().max().item() <= K2_RTOL * scale
+    assert (L - Lp).abs().max().item() <= K2_RTOL * scale
+
+
+def _fit_problem(dev, n=128, d=3, R=16):
+    from madaiemulator_tpu_torch.models import gp
+
+    rng = np.random.default_rng(7)
+    X = rng.uniform(size=(n, d))
+    y = np.sin(3 * X[:, 0]) + X[:, 1] ** 2 - 0.5 * X[:, 2]
+    data = gp.GPData(X=torch.tensor(X, dtype=torch.float32, device=dev),
+                     y=torch.tensor(y, dtype=torch.float32, device=dev))
+    return data, R
+
+
+def test_fit_gp_kernels_match_library_route(dev):
+    """fit_gp at float32 on K1 + K2 and on the library route from the same
+    restarts (16 lanes of (128, 128) Grams, 8 LBFGS steps): the best thetas
+    of each, scored by the float64 LML, agree to 1e-3 of the value, and the
+    kernel route launches K1 and K2 once per objective evaluation."""
+    import dataclasses
+
+    from madaiemulator_tpu_torch.models import fit, gp
+    from madaiemulator_tpu_torch.utils.config import GPConfig
+
+    data, R = _fit_problem(dev)
+    cfg = GPConfig(nparams=3, regression_order=1, n_restarts=R,
+                   max_opt_steps=8)
+    lib = dataclasses.replace(cfg, gram_method="xla", cholesky_method="xla")
+    k1_0, k2_0 = k1.launches, k2.launches
+    rk = fit.fit_gp(torch.Generator().manual_seed(0), data, cfg)
+    torch.cuda.synchronize()
+    n_evals = rk.stats["n_vg_calls"] + rk.stats["n_v_calls"]
+    assert k1.launches - k1_0 == n_evals
+    assert k2.launches - k2_0 == n_evals
+    rl = fit.fit_gp(torch.Generator().manual_seed(0), data, lib)
+    d64 = gp.GPData(X=data.X.double(), y=data.y.double())
+
+    def ll64(p):
+        p = type(p)(*(a.double() for a in p))
+        with torch.no_grad():
+            return gp.log_marginal_likelihood(p, d64, cfg).item()
+
+    a, b = ll64(rk.params), ll64(rl.params)
+    assert np.isfinite(a) and np.isfinite(b)
+    assert abs(a - b) <= 1e-3 * abs(b), (a, b)

@@ -145,3 +145,125 @@ def test_rescue_revives_dead_starts_and_all_dead_warns(caplog):
                                lml_fn=dead_lml)
     assert not np.isfinite(res.log_likelihood.item())
     assert any("infeasible" in r.message for r in caplog.records)
+
+
+# --- the in-graph fit (fit_gp, fit_one_start) against the jitted JAX fit_gp
+#
+# Each case runs the JAX fit_gp once (one compile) and the port's fit_gp
+# unchunked and with restart_chunk=1, all from the same u0 (R=3 restarts,
+# 5 LBFGS steps, N=30, d=2). The JAX fit_gp is jitted with the patched
+# sample_restarts traced in, so each case has its own config and u0.
+# Tolerances (float64): the per-restart best LML to rtol 1e-8 and the best
+# params to rtol 1e-6; both packages run optax's algorithm on the same
+# iterates, so they agree to the rounding of the likelihood gradients
+# (observed ~1e-10 on the LML). The starts are drawn where C(theta) is well
+# conditioned (amplitude 0.02-50, nugget >= 1e-5): at a nugget of 1e-8 x
+# amp (cond ~1e10) two float64 LAPACK builds already differ by ~5e-9 in
+# the objective and its gradient, and the linesearch's long steps amplify
+# that (measured: 2.8e-6 on one restart's LML after 5 zoom steps).
+# Two cases cover both linesearches, both regression orders and a Matern
+# family, with one JAX compile each.
+_GP_CASES = {
+    "zoom-order0": dict(linesearch="zoom", regression_order=0),
+    # restart 1 starts at NaN: a dead start (non-finite objective) that the
+    # rescue remaps to the moment-matched fallback
+    "backtracking-order1-matern32-dead-start": dict(
+        linesearch="backtracking", regression_order=1, covariance="matern32"),
+}
+DEAD = "backtracking-order1-matern32-dead-start"
+
+
+@pytest.fixture(scope="module", params=list(_GP_CASES))
+def gp_case(request):
+    name = request.param
+    kw = dict(_GP_CASES[name])
+    cov = kw.pop("covariance", "power_exponential")
+    n, d, R, steps = 30, 2, 3, 5
+    rng = np.random.default_rng(11)
+    X = rng.uniform(size=(n, d))
+    y = np.sin(3 * X[:, 0]) + 0.5 * X[:, 1] + 0.05 * rng.standard_normal(n)
+    cj = jcfg.GPConfig(nparams=d, n_restarts=R, max_opt_steps=steps,
+                       covariance=jcfg.COVARIANCE_CLI_NAMES[cov], **kw)
+    ct = tcfg.GPConfig(nparams=d, n_restarts=R, max_opt_steps=steps,
+                       covariance=tcfg.COVARIANCE_CLI_NAMES[cov], **kw)
+    k = ct.num_length_scales
+    u0 = np.concatenate([rng.uniform(-1.0, 1.0, (R, 1)),
+                         rng.uniform(-0.5, 1.5, (R, 1)),
+                         rng.uniform(-1.5, 1.5, (R, k))], axis=1)
+    if name == DEAD:
+        u0[1] = np.nan
+    dj = jgp.GPData(X=jnp.asarray(X), y=jnp.asarray(y))
+    dt = tgp.GPData(X=torch.tensor(X), y=torch.tensor(y))
+    with pytest.MonkeyPatch.context() as mp:
+        _fixed_starts(mp, u0)
+        rj = jfit.fit_gp(jax.random.key(0), dj, cj)
+        rt = tfit.fit_gp(torch.Generator().manual_seed(0), dt, ct)
+        rc = tfit.fit_gp(torch.Generator().manual_seed(0), dt, ct,
+                         restart_chunk=1)
+    return dict(name=name, u0=u0, X=X, y=y, ct=ct, dt=dt, rj=rj, rt=rt,
+                rc=rc, steps=steps)
+
+
+def test_fit_gp_matches_jax_f64(gp_case):
+    rj, rt = gp_case["rj"], gp_case["rt"]
+    np.testing.assert_allclose(rt.restart_log_likelihoods.numpy(),
+                               np.asarray(rj.restart_log_likelihoods),
+                               rtol=1e-8)
+    np.testing.assert_allclose(rt.log_likelihood.item(),
+                               float(rj.log_likelihood), rtol=1e-8)
+    for a, b in zip(rt.params, rj.params):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+    for a, b in zip(rt.restart_params, rj.restart_params):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+    # one rescue value batch, step 0's value+grad, every linesearch
+    # evaluation, the final value batch
+    st = rt.stats
+    assert st["n_v_calls"] == 2
+    assert st["n_vg_calls"] >= 1 + st["linesearch_evals"]
+    assert st["n_steps"] == gp_case["steps"]
+
+
+def test_fit_one_start_matches_jax_f64(gp_case):
+    """The batched fit_one_start from the same live starts gives what the
+    JAX fit_one_start gave under fit_gp's vmap (fit_gp runs a live start
+    unchanged; lanes are independent, so the dead start is left out)."""
+    u0, ct = gp_case["u0"], gp_case["ct"]
+    live = ~np.isnan(u0).any(axis=1)
+    start = tk.GPParams(torch.tensor(u0[live, 0]), torch.tensor(u0[live, 1]),
+                        torch.tensor(u0[live, 2:]))
+    best_u, best_negll = tfit.fit_one_start(
+        start, torch.tensor(gp_case["X"]), torch.tensor(gp_case["y"]), ct,
+        gp_case["steps"])
+    rj = gp_case["rj"]
+    np.testing.assert_allclose(-best_negll.numpy(),
+                               np.asarray(rj.restart_log_likelihoods)[live],
+                               rtol=1e-8)
+    lo, hi = tfit._bounds_arrays(ct, torch.float64)
+    for a, b in zip(tfit._u_to_params(best_u, lo, hi), rj.restart_params):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b)[live], rtol=1e-6)
+
+
+@pytest.mark.parametrize("gp_case", [DEAD], indirect=True)
+def test_dead_start_rescued_to_jax_fallback(gp_case):
+    """Restart 1 starts at NaN; both packages remap it to the same
+    moment-matched fallback, and its trajectory from there agrees."""
+    assert np.isnan(gp_case["u0"][1]).all()
+    lls = gp_case["rt"].restart_log_likelihoods.numpy()
+    assert np.isfinite(lls).all()
+    np.testing.assert_allclose(
+        lls[1], float(gp_case["rj"].restart_log_likelihoods[1]), rtol=1e-8)
+    for a, b in zip(gp_case["rt"].restart_params, gp_case["rj"].restart_params):
+        np.testing.assert_allclose(a.numpy()[1], np.asarray(b)[1], rtol=1e-6)
+
+
+def test_restart_chunk_matches_unchunked(gp_case):
+    """restart_chunk=1 runs the restarts one at a time (frozen lanes keep
+    their state, so the batch does not change a lane's trajectory): the
+    same result to rtol 1e-10, with one objective batch per group."""
+    rt, rc = gp_case["rt"], gp_case["rc"]
+    np.testing.assert_allclose(rc.restart_log_likelihoods.numpy(),
+                               rt.restart_log_likelihoods.numpy(), rtol=1e-10)
+    for a, b in zip(rc.restart_params, rt.restart_params):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10)
+    assert rc.stats["n_v_calls"] == 1 + 3  # rescue + a final value per group
+    assert rc.stats["n_vg_calls"] > rt.stats["n_vg_calls"]
