@@ -1,6 +1,7 @@
 """`interactive_emulator_torch` command-line tool (port of
 madaiemulator_tpu/cli.py: `estimate_thetas` on the dense path,
-`interactive_mode`, `print_thetas` and `convert` on the dense text snapshot).
+`interactive_mode`, `print_thetas` and `convert` on the dense snapshot, as
+text or as .npz by the state file's extension).
 
     interactive_emulator_torch estimate_thetas <model_file> <state_file>
         [--regression_order=N] [--covariance_fn=NAME] [--pca_variance=P]
@@ -10,23 +11,24 @@ madaiemulator_tpu/cli.py: `estimate_thetas` on the dense path,
         [--cholesky_method=pallas|left|xla] [--gram_method=pallas|xla]
 
 trains the multivariate emulator (PCA + one GP per component, every
-component x restart lane in one lock-step LBFGS batch) and writes the text
-snapshot; the flags and defaults are the JAX CLI's, except that
---cholesky_method and --gram_method default to "pallas" (the Hopper kernels
-at float32). What is not yet ported exits 2 with one line on stderr:
+component x restart lane in one lock-step LBFGS batch) and writes the
+snapshot (.npz when the state file ends in .npz, else text); the flags and
+defaults are the JAX CLI's, except that --cholesky_method and
+--gram_method default to "pallas" (the Hopper kernels at float32). What is not yet ported exits 2 with one line on stderr:
 --fit_method=iterative, --inducing, --noise_file, --gradients_file,
 --update_precision=default|high, --cholesky_method=blocked, the JAX CLI's
 matrix-free and host-fit tuning flags (--rank, --probes, --lanczos_iters,
 --cg_tol, --cg_max_iters, --logdet_method, --checkpoint_path, --vg_batch,
---inducing_opt_steps, --row_chunk), a MULTIFIDELITY model file, an .npz
-state file.
+--inducing_opt_steps, --row_chunk), a MULTIFIDELITY model file.
 
     interactive_emulator_torch print_thetas <state_file>
         prints the fitted per-component hyperparameters (natural space).
 
     interactive_emulator_torch convert <in_state> <out_state>
-        re-encodes a dense text snapshot (byte-identical to the JAX CLI's
-        text output; .npz is not yet ported).
+        re-encodes a dense snapshot between text and .npz (by extension; the
+        JAX CLI's output byte for byte in text, key for key in .npz).
+        Multi-fidelity, sparse and version-3 snapshots, in either encoding,
+        exit 2 with one line.
 
     interactive_emulator_torch interactive_mode <state_file>
         [--dtype=float64|float32] [--device=cuda|cpu] [--serve_method=dense]
@@ -136,7 +138,7 @@ def _build_parser() -> argparse.ArgumentParser:
     pt.add_argument("state_file")
 
     cvt = sub.add_parser(
-        "convert", help="re-encode a dense text snapshot (text only)")
+        "convert", help="convert a dense state file between text and npz")
     cvt.add_argument("in_state")
     cvt.add_argument("out_state")
     return p
@@ -164,8 +166,6 @@ def _unported_flag(args) -> Optional[str]:
         return f"--update_precision={args.update_precision} is not yet ported"
     if args.cholesky_method == "blocked":
         return "--cholesky_method=blocked is not ported; use pallas, left or xla"
-    if args.state_file.endswith(".npz"):
-        return ".npz snapshots are not yet ported"
     return None
 
 
@@ -176,7 +176,7 @@ def cmd_estimate_thetas(args) -> int:
         is_multifidelity_model_file,
         read_model_file,
     )
-    from madaiemulator_tpu_torch.io.snapshot import write_snapshot
+    from madaiemulator_tpu_torch.io.snapshot import write_snapshot_auto
     from madaiemulator_tpu_torch.models.multivariate import fit_multivariate
     from madaiemulator_tpu_torch.utils.config import (
         COVARIANCE_CLI_NAMES,
@@ -242,8 +242,8 @@ def cmd_estimate_thetas(args) -> int:
                 f"({np.isfinite(lls[i]).sum()}/{lls.shape[1]} restarts finite)",
                 file=sys.stderr,
             )
-    write_snapshot(args.state_file, emu, param_names=mf.param_names,
-                   output_names=mf.output_names)
+    write_snapshot_auto(args.state_file, emu, param_names=mf.param_names,
+                        output_names=mf.output_names)
     if not args.quiet:
         print(
             f"wrote {args.state_file}: {emu.n_components} component(s), "
@@ -255,13 +255,13 @@ def cmd_estimate_thetas(args) -> int:
 
 def _read_container(path: str):
     """(emulator without serve states, param names, output names) of a
-    dense text snapshot, on the CPU in float64."""
+    dense snapshot (text or .npz), on the CPU in float64."""
     import torch
 
-    from madaiemulator_tpu_torch.io.snapshot import read_snapshot
+    from madaiemulator_tpu_torch.io.snapshot import read_snapshot_auto
 
-    return read_snapshot(path, device=torch.device("cpu"),
-                         dtype=torch.float64, build_states=False)
+    return read_snapshot_auto(path, device=torch.device("cpu"),
+                              dtype=torch.float64, build_states=False)
 
 
 def cmd_print_thetas(args) -> int:
@@ -281,16 +281,14 @@ def cmd_print_thetas(args) -> int:
 
 
 def cmd_convert(args) -> int:
-    from madaiemulator_tpu_torch.io.snapshot import write_snapshot
+    from madaiemulator_tpu_torch.io.snapshot import write_snapshot_auto
 
-    if args.out_state.endswith(".npz"):
-        return _error(".npz snapshots are not yet ported")
     try:
         emu, param_names, output_names = _read_container(args.in_state)
     except (OSError, ValueError) as e:
         return _error(f"{args.in_state}: {e}")
-    write_snapshot(args.out_state, emu, param_names=param_names,
-                   output_names=output_names)
+    write_snapshot_auto(args.out_state, emu, param_names=param_names,
+                        output_names=output_names)
     print(
         f"wrote {args.out_state}: {emu.n_components} component(s), "
         f"N={emu.X.shape[0]}, d={emu.X.shape[1]}, t={len(output_names)}",
@@ -302,7 +300,7 @@ def cmd_convert(args) -> int:
 def cmd_interactive_mode(args) -> int:
     import torch
 
-    from madaiemulator_tpu_torch.io.snapshot import read_snapshot
+    from madaiemulator_tpu_torch.io.snapshot import read_snapshot_auto
     from madaiemulator_tpu_torch.models.multivariate import predict_multivariate
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -310,7 +308,7 @@ def cmd_interactive_mode(args) -> int:
         return 2
     dtype = torch.float64 if args.dtype == "float64" else torch.float32
     try:
-        emu, param_names, output_names = read_snapshot(
+        emu, param_names, output_names = read_snapshot_auto(
             args.state_file, device=torch.device(args.device), dtype=dtype
         )
     except ValueError as e:

@@ -377,7 +377,7 @@ extern "C" int madai_pairwise_covariance(const float* U, const float* V,
                                          int B, int n1, int n2, int d,
                                          int family, int add_diag,
                                          void* stream) {
-  if (B <= 0 || n1 <= 0 || n2 <= 0 || d <= 0 || B > 65535 ||
+  if (B <= 0 || n1 <= 0 || n2 <= 0 || d <= 0 ||
       (add_diag && diag_add == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

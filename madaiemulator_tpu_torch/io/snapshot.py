@@ -1,8 +1,11 @@
-"""Trained-emulator snapshot, dense text grammar versions 1 and 2 (port of
-madaiemulator_tpu/io/snapshot.py read_snapshot / write_snapshot).
+"""Trained-emulator snapshot, dense grammar versions 1 and 2, as text and as
+numpy .npz (port of madaiemulator_tpu/io/snapshot.py: read_snapshot /
+write_snapshot, read_snapshot_npz / write_snapshot_npz and the extension
+routing of read_snapshot_auto / write_snapshot_auto).
 
-The grammar is shared with the JAX package byte for byte, so a snapshot
-written by either package loads in the other:
+Both encodings are shared with the JAX package (the text byte for byte, the
+.npz key for key), so a snapshot written by either package loads in the
+other. The text grammar:
 
     MADAIEMULATOR_TPU_SNAPSHOT <1|2>
     covariance <name> ; power_exp_alpha <float> ; regression_order <int>
@@ -14,9 +17,10 @@ written by either package loads in the other:
     and in version 2 the PC-space noise variances (N x r).
 
 '#' starts a comment that runs to the end of its line; floats are written
-"%.17g" so float64 round-trips exactly. Version 3 (gradients), the
-multi-fidelity and sparse grammars and .npz snapshots are not yet ported and
-raise ValueError.
+"%.17g" so float64 round-trips exactly. The .npz holds the same payload
+as arrays under the JAX writer's keys (`write_snapshot_npz`). Version 3
+(gradients) and the multi-fidelity and sparse grammars, in either encoding,
+are not yet ported and raise ValueError.
 """
 
 from __future__ import annotations
@@ -55,6 +59,19 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _version(emu: MultivariateEmulator) -> int:
+    return VERSION if emu.noise is None else VERSION_NOISE
+
+
+def _check_version(version: int) -> None:
+    if version == 3:
+        raise ValueError(
+            "snapshot version 3 (gradient-enhanced) is not yet ported"
+        )
+    if version not in (VERSION, VERSION_NOISE):
+        raise ValueError(f"unsupported snapshot version {version}")
+
+
 def write_snapshot(
     dest: Union[str, TextIO],
     emu: MultivariateEmulator,
@@ -82,7 +99,7 @@ def write_snapshot(
         axis=1,
     )  # (r, ntheta), natural space, reference layout
     w = dest.write
-    w(f"{MAGIC} {VERSION if emu.noise is None else VERSION_NOISE}\n")
+    w(f"{MAGIC} {_version(emu)}\n")
     w(f"covariance {cfg.covariance.value}\n")
     w(f"power_exp_alpha {cfg.power_exp_alpha:.17g}\n")
     w(f"regression_order {cfg.regression_order}\n")
@@ -155,7 +172,8 @@ def read_snapshot(
     kernels."""
     if isinstance(source, str):
         if source.endswith(".npz"):
-            raise ValueError(".npz snapshots are not yet ported")
+            raise ValueError("an .npz snapshot: use read_snapshot_npz or "
+                             "read_snapshot_auto")
         with open(source, "r") as f:
             return read_snapshot(f, device, dtype, build_states)
     toks = _Tokens(source.read())
@@ -165,12 +183,7 @@ def read_snapshot(
     if first != MAGIC:
         raise ValueError("not a madaiemulator_tpu snapshot")
     version = int(toks.one())
-    if version == 3:
-        raise ValueError(
-            "snapshot version 3 (gradient-enhanced) is not yet ported"
-        )
-    if version not in (VERSION, VERSION_NOISE):
-        raise ValueError(f"unsupported snapshot version {version}")
+    _check_version(version)
     cov = COVARIANCE_CLI_NAMES[toks.expect("covariance")]
     alpha = float(toks.expect("power_exp_alpha"))
     order = int(toks.expect("regression_order"))
@@ -208,3 +221,109 @@ def read_snapshot(
     emu = emulator_from_numpy(arrays, cfg, device=device, dtype=dtype,
                               build_states=build_states)
     return emu, param_names, output_names
+
+
+def write_snapshot_npz(
+    dest: str,
+    emu: MultivariateEmulator,
+    param_names: List[str] | None = None,
+    output_names: List[str] | None = None,
+) -> None:
+    """Binary snapshot (numpy .npz, compressed): the text format's payload
+    as arrays, under the JAX writer's keys and dtypes, so either package
+    reads what the other wrote. Faster to parse than text at large N."""
+    d = emu.X.shape[1]
+    t = emu.n_outputs
+    cfg = emu.config
+    extra = {} if emu.noise is None else {"noise_pc": _np(emu.noise)}
+    np.savez_compressed(
+        dest,
+        magic=np.array([MAGIC]),
+        version=np.array([_version(emu)]),
+        covariance=np.array([cfg.covariance.value]),
+        power_exp_alpha=np.array([cfg.power_exp_alpha]),
+        regression_order=np.array([cfg.regression_order]),
+        predict_variance_includes_nugget=np.array(
+            [int(cfg.predict_variance_includes_nugget)]),
+        # derived from the state: standardize=False stores ystd = ones
+        pca_standardize=np.array([int(np.any(_np(emu.pca.ystd) != 1.0))]),
+        param_names=np.array(
+            list(param_names or [f"param_{i}" for i in range(d)])),
+        output_names=np.array(
+            list(output_names or [f"output_{i}" for i in range(t)])),
+        mins=_np(emu.scaling.mins),
+        ranges=_np(emu.scaling.ranges),
+        ymean=_np(emu.pca.ymean),
+        ystd=_np(emu.pca.ystd),
+        eigenvalues=_np(emu.pca.eigenvalues),
+        U=_np(emu.pca.U),
+        X=_np(emu.X),
+        Z=_np(emu.Z),
+        log_amp=_np(emu.params.log_amp),
+        log_nugget=_np(emu.params.log_nugget),
+        log_ls=_np(emu.params.log_ls),
+        **extra,
+    )
+
+
+def read_snapshot_npz(
+    source: str,
+    device,
+    dtype: torch.dtype = torch.float64,
+    build_states: bool = True,
+) -> Tuple[MultivariateEmulator, List[str], List[str]]:
+    """Load an .npz snapshot as `read_snapshot` loads a text one: the serve
+    states rebuilt on `device` unless build_states is False. Returns
+    (emulator, param_names, output_names)."""
+    with np.load(source, allow_pickle=False) as z:
+        magic = str(z["magic"][0])
+        if magic in _OTHER_MAGICS:
+            raise ValueError(
+                f"{_OTHER_MAGICS[magic]} snapshots are not yet ported")
+        if magic != MAGIC:
+            raise ValueError("not a madaiemulator_tpu npz snapshot")
+        _check_version(int(z["version"][0]))
+        cfg = GPConfig(
+            nparams=int(z["X"].shape[1]),
+            covariance=COVARIANCE_CLI_NAMES[str(z["covariance"][0])],
+            regression_order=int(z["regression_order"][0]),
+            power_exp_alpha=float(z["power_exp_alpha"][0]),
+            predict_variance_includes_nugget=bool(
+                int(z["predict_variance_includes_nugget"][0])),
+        )
+        arrays = {k: z[k] for k in ("mins", "ranges", "ymean", "ystd",
+                                    "eigenvalues", "U", "X", "Z", "log_amp",
+                                    "log_nugget", "log_ls")}
+        if "noise_pc" in z:
+            arrays["noise"] = z["noise_pc"]
+        names = (list(map(str, z["param_names"])),
+                 list(map(str, z["output_names"])))
+    # the shared tail of both readers (the JAX package's
+    # _assemble_multivariate): the container and its serve states
+    emu = emulator_from_numpy(arrays, cfg, device=device, dtype=dtype,
+                              build_states=build_states)
+    return (emu, *names)
+
+
+def write_snapshot_auto(
+    dest: str,
+    emu: MultivariateEmulator,
+    param_names: List[str] | None = None,
+    output_names: List[str] | None = None,
+) -> None:
+    """'.npz' -> `write_snapshot_npz`, anything else -> the text format."""
+    writer = write_snapshot_npz if dest.endswith(".npz") else write_snapshot
+    writer(dest, emu, param_names, output_names)
+
+
+def read_snapshot_auto(
+    source: str,
+    device,
+    dtype: torch.dtype = torch.float64,
+    build_states: bool = True,
+) -> Tuple[MultivariateEmulator, List[str], List[str]]:
+    """'.npz' -> `read_snapshot_npz`, anything else -> `read_snapshot`.
+    Both read the snapshot's own magic and reject the grammars that are not
+    yet ported (multi-fidelity, sparse, version 3) with ValueError."""
+    reader = read_snapshot_npz if source.endswith(".npz") else read_snapshot
+    return reader(source, device, dtype=dtype, build_states=build_states)

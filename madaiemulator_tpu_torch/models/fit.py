@@ -130,9 +130,10 @@ def _unflatten(u: torch.Tensor) -> GPParams:
 
 
 def _lane_objective(X, y, noise, config: GPConfig, lo, hi, stats: dict):
-    """Batched objective of (B, P) iterates, lane b fitting targets y[b]
-    (y (N,) is shared by every lane): (value_and_grad, value) closures over
-    -log_marginal_likelihood, counting their calls in `stats`."""
+    """Batched objective of (B, P) iterates, lane b fitting targets y[b] on
+    design X[b] (X (N, d) and y (N,) may be shared by every lane):
+    (value_and_grad, value) closures over -log_marginal_likelihood,
+    counting their calls in `stats`."""
     data = GPData(X=X, y=y, noise=noise)
 
     def negll(u):
@@ -171,9 +172,11 @@ def fit_one_start(
 ) -> Tuple[GPParams, torch.Tensor]:
     """LBFGS trajectories from a batch of unconstrained starts u0 (leading
     lane axis B), all in lock step (`models.lbfgs.run_lbfgs`, optax's
-    algorithm with `config.linesearch`). y is (N,) shared by every lane, or
-    (B, N), one target vector per lane; noise likewise. The JAX function
-    runs one start and is vmapped by its callers; this one takes the batch.
+    algorithm with `config.linesearch`). X is (N, d) shared by every lane,
+    or (B, N, d), one design per lane (an ensemble); y is (N,) or (B, N);
+    noise likewise. The JAX function runs one start and is vmapped by its
+    callers (`in_axes=(0, 0, 0)` for an ensemble); this one takes the
+    batch.
     Returns (best_u, best_neg_loglik (B,)) in u0's dtype. The JAX
     function's h_extra and gradient blocks are not yet ported.
     `stats`, when given, accumulates the objective evaluation counts.
@@ -491,6 +494,70 @@ def fit_gp_host(
     )
 
 
+def _repeat_lanes(t, k: int):
+    """(G, ...) -> (G * k, ...): each row k times in a row; None stays."""
+    if t is None:
+        return None
+    return t[:, None].expand(t.shape[0], k, *t.shape[1:]).reshape(
+        t.shape[0] * k, *t.shape[1:])
+
+
+def _fit_lanes(
+    u0: torch.Tensor,
+    X: torch.Tensor,
+    Y: torch.Tensor,
+    config: GPConfig,
+    steps: int,
+    noise: torch.Tensor | None = None,
+    group_chunk: int | None = None,
+    restart_chunk: int | None = None,
+    stats: dict | None = None,
+) -> FitResult:
+    """L-BFGS over G x R lanes from unconstrained starts u0 (G, R, P): lane
+    (g, r) fits targets Y[g] (noise[g]) on design X, the (N, d) one shared
+    by every lane or X[g] of (G, N, d). The lanes run as one lock-step
+    `fit_one_start` batch, or in sequential blocks of group_chunk groups x
+    restart_chunk restarts (the same result, less memory). The argmax over
+    restarts skips non-finite LMLs. Every FitResult field carries G in
+    front: params (G, ...), log_likelihood (G,), restart_log_likelihoods
+    (G, R) (-inf where not finite), restart_params (G, R, ...)."""
+    G, R, P = u0.shape
+    dtype, dev = Y.dtype, X.device
+    stats = _new_stats() if stats is None else stats
+    gc = G if group_chunk is None else group_chunk
+    rc = R if restart_chunk is None else restart_chunk
+    best_u = torch.empty_like(u0)
+    best_negll = torch.empty((G, R), dtype=dtype, device=dev)
+    for g0 in range(0, G, gc):
+        g = slice(g0, g0 + gc)
+        for r0 in range(0, R, rc):
+            r = slice(r0, r0 + rc)
+            ub = u0[g, r]
+            k = ub.shape[1]
+            bu, bv = fit_one_start(
+                _unflatten(ub.reshape(-1, P)),
+                X if X.dim() == 2 else _repeat_lanes(X[g], k),
+                _repeat_lanes(Y[g], k), config, steps,
+                noise=None if noise is None else _repeat_lanes(noise[g], k),
+                stats=stats)
+            best_u[g, r] = _flatten_t(bu).reshape(ub.shape)
+            best_negll[g, r] = bv.reshape(ub.shape[:2])
+    lo, hi = _bounds_arrays(config, dtype, dev)
+    params_all = GPParams(*(a.reshape((G, R) + a.shape[1:]) for a in
+                            _u_to_params(_unflatten(best_u.reshape(-1, P)),
+                                         lo, hi)))
+    lls = torch.where(torch.isfinite(best_negll), -best_negll, -torch.inf)
+    i = torch.argmax(lls, dim=-1)
+    rows = torch.arange(G, device=dev)
+    return FitResult(
+        params=GPParams(*(a[rows, i] for a in params_all)),
+        log_likelihood=lls[rows, i],
+        restart_log_likelihoods=lls,
+        restart_params=params_all,
+        stats=stats,
+    )
+
+
 def _fit_components(
     generator: torch.Generator,
     X: torch.Tensor,
@@ -504,12 +571,10 @@ def _fit_components(
     """`fit_gp` for r GPs on one design at once: Y (r, N) holds each
     component's targets (noise, if given, (r, N) its noise variances). The
     (r x R) lanes run as one lock-step batch, or in groups of restart_chunk
-    restarts of every component. Every FitResult field carries the
-    component axis in front: params (r, ...), log_likelihood (r,),
-    restart_log_likelihoods (r, R), restart_params (r, R, ...)."""
+    restarts of every component (`_fit_lanes`)."""
     R = config.n_restarts if n_restarts is None else n_restarts
     steps = config.max_opt_steps if max_steps is None else max_steps
-    r, N = Y.shape
+    r = Y.shape[0]
     dtype = Y.dtype
     dev = X.device
     lo, hi = _bounds_arrays(config, dtype, dev)
@@ -522,18 +587,14 @@ def _fit_components(
     ]).to(device=dev, dtype=dtype)  # (r, R, P)
     P = u0.shape[-1]
 
-    def lanes(t, k):  # (r, N) -> (r * k, N): each component's row k times
-        return None if t is None else t[:, None, :].expand(r, k, N).reshape(
-            r * k, N)
-
     # Rescue dead draws (JAX fit.py:637-666): in float32 a smooth-kernel
     # Gram is only factorable in part of theta space, and a start at -inf
     # has a NaN gradient that kills its trajectory. One batched objective
     # value finds dead starts; they are remapped to stratified
     # moment-matched fallbacks (amp = var(y), short length scales, real
     # nuggets) that factor at working precision.
-    _, value = _lane_objective(X, lanes(Y, R), lanes(noise, R), config, lo,
-                               hi, stats)
+    _, value = _lane_objective(X, _repeat_lanes(Y, R),
+                               _repeat_lanes(noise, R), config, lo, hi, stats)
     v0 = value(u0.reshape(r * R, P)).reshape(r, R)
     amp_fb = torch.clamp(Y.var(dim=-1, unbiased=False),
                          config.amp_bounds[0] * 10, config.amp_bounds[1] / 10)
@@ -551,37 +612,14 @@ def _fit_components(
     u_fb = _flatten_t(_params_to_u(fb, lo, hi))
     u0 = torch.where(torch.isfinite(v0)[..., None], u0, u_fb)
 
-    chunk = R if restart_chunk is None or restart_chunk >= R else restart_chunk
-    if R % chunk != 0:
+    if restart_chunk is not None and R % min(restart_chunk, R) != 0:
         raise ValueError(
-            f"n_restarts={R} not divisible by restart_chunk={chunk}")
-    best_u = torch.empty_like(u0)
-    best_negll = torch.empty((r, R), dtype=dtype, device=dev)
-    for g0 in range(0, R, chunk):
-        bu, bv = fit_one_start(
-            _unflatten(u0[:, g0:g0 + chunk].reshape(r * chunk, P)), X,
-            lanes(Y, chunk), config, steps, noise=lanes(noise, chunk),
-            stats=stats)
-        best_u[:, g0:g0 + chunk] = _flatten_t(bu).reshape(r, chunk, P)
-        best_negll[:, g0:g0 + chunk] = bv.reshape(r, chunk)
+            f"n_restarts={R} not divisible by restart_chunk={restart_chunk}")
+    res = _fit_lanes(u0, X, Y, config, steps, noise=noise,
+                     restart_chunk=restart_chunk, stats=stats)
     stats["n_steps"] = steps
-
-    best_params_all = _u_to_params(_unflatten(best_u.reshape(r * R, P)),
-                                   lo, hi)
-    best_params_all = GPParams(*(a.reshape((r, R) + a.shape[1:])
-                                 for a in best_params_all))
-    lls = -best_negll
-    i = torch.argmax(torch.where(torch.isfinite(lls), lls, -torch.inf),
-                     dim=-1)
-    rows = torch.arange(r, device=dev)
     stats["fit_wall_s"] = time.perf_counter() - t0
-    return FitResult(
-        params=GPParams(*(a[rows, i] for a in best_params_all)),
-        log_likelihood=lls[rows, i],
-        restart_log_likelihoods=lls,
-        restart_params=best_params_all,
-        stats=stats,
-    )
+    return res
 
 
 def fit_gp(

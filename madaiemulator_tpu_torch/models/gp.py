@@ -9,9 +9,11 @@ Math (GP with a generalized-least-squares polynomial mean):
   var(x*)  = k(x*,x*) - k*^T C^-1 k* + g^T A^-1 g,  g = h(x*) - H^T C^-1 k*
 
 Batching: one GP, or a batch of GPs (PCA components, or fit restarts) that
-share the design X (N, d): every GPParams leaf and every GPPosteriorState
-field carries the batch shape (*B,) in front, and y is (*B, N) or one (N,)
-vector shared by the batch. All products run in full FP32 at float32 (TF32
+share the design X (N, d), or each on its own design X (*B, N, d) (the
+members of an ensemble, `parallel.ensemble`; queries Xs (*B, m, d) then):
+every GPParams leaf and every GPPosteriorState field carries the batch
+shape (*B,) in front, and y is (*B, N) or one (N,) vector shared by the
+batch. All products run in full FP32 at float32 (TF32
 is off package-wide), the counterpart of the JAX package's
 Precision.HIGHEST pins.
 """
@@ -33,7 +35,8 @@ logger = logging.getLogger("madaiemulator_tpu_torch")
 
 
 class GPData(NamedTuple):
-    """Training data: X (N, d) scaled design, y (*B, N) targets, and optional
+    """Training data: X (N, d) scaled design (or (*B, N, d), one per batch
+    member), y (*B, N) targets, and optional
     per-point observation-noise variances noise (*B, N) added to the Gram
     diagonal. h_extra / dY / dY_noise keep the JAX field layout; they are
     not yet ported and are rejected."""

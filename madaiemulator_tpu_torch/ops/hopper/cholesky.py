@@ -78,8 +78,12 @@ def cholesky(A: torch.Tensor) -> torch.Tensor:
             f"shape {tuple(A.shape)}"
         )
     B, n, _ = A.shape
-    if B == 0 or n == 0 or B > 65535:
+    if B == 0 or n == 0:
         raise ValueError(f"cholesky: unsupported shape {tuple(A.shape)}")
+    if B > 65535:
+        raise ValueError(
+            f"cholesky: batch {B} > 65535 matrices a launch; split the batch "
+            "(fit_ensemble: ensemble_chunk or restart_split)")
     from madaiemulator_tpu_torch.ops.hopper import build
 
     lib = build.load()

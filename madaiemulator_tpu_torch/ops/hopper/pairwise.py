@@ -113,8 +113,6 @@ def _check(U, V, amp, diag_add, family, add_diag=True):
         )
     if min(U.shape) == 0 or V.shape[1] == 0:
         raise ValueError("pairwise_covariance: empty operand")
-    if B > 65535:
-        raise ValueError(f"pairwise_covariance: batch {B} > 65535")
 
 
 _entry = None  # the C entry point, looked up at the first launch

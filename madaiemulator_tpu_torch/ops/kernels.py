@@ -1,11 +1,13 @@
 """Covariance kernels and Gram / cross-matrix builders (port of
 madaiemulator_tpu/ops/kernels.py, dense forward part).
 
-Batching: JAX vmaps these functions over PCA components; here the component
-axis is a leading batch dimension written out. Every function takes the
-design X as (N, d) (shared by all components) or (*B, N, d), and GPParams
-whose leaves carry the same leading batch shape (*B,) — or none, for one
-GP. Outputs carry the batch shape in front.
+Batching: JAX vmaps these functions over PCA components and ensemble
+members; here that axis is a leading batch dimension written out. Every
+function takes the design X as (N, d) (shared by all components) or
+(*B, N, d) (one per member: K1 is then handed one contiguous (B, N, d)
+block of scaled points), and GPParams whose leaves carry the same leading
+batch shape (*B,) — or none, for one GP. Outputs carry the batch shape in
+front.
 
 Routing follows the JAX package: with `gram_method="pallas"` (the port's
 default) a float32 operand of an alpha = 2 power-exponential or Matérn

@@ -81,14 +81,24 @@ def _panel_factor(P: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return L.reshape(P.shape), Linv.reshape(P.shape)
 
 
+# The history product of `left_cholesky` is summed over k in chunks of this
+# many columns. As one GEMM over k up to N, the H100's float32 GEMM leans
+# low as k grows (a k = 16,384 sum of squares 1.3e-5 low, against 5e-8 on
+# the CPU), which put config 4's float32 factor 1.2e-4 x max|L| from float64
+# and its LML 9.9e-5 x |LML|; in chunks of 2048, 3.6e-5 and 7.7e-6, for +11%
+# of the factor's time (`tools/f32_factor_error.py`; PERF.md section 6).
+HISTORY_K_CHUNK = 2048
+
+
 def left_cholesky(
     A: torch.Tensor,
     block: int = 1024,
     update_precision: str = "highest",
     diag: str = "xla",
 ) -> torch.Tensor:
-    """Left-looking blocked lower Cholesky: per panel, ONE history GEMM
-    folding all earlier panels, then the diagonal block and the rows below.
+    """Left-looking blocked lower Cholesky: per panel, the history GEMMs
+    folding all earlier panels (one per HISTORY_K_CHUNK columns of them),
+    then the diagonal block and the rows below.
     n must be a multiple of `block` (pad with `pad_spd`). Differentiable,
     with the Murray backward.
 
@@ -117,11 +127,18 @@ def left_cholesky(
 def _left_cholesky_impl(A: torch.Tensor, block: int, diag: str) -> torch.Tensor:
     n = A.shape[-1]
     use_k3 = diag == "pallas" and A.dtype == torch.float32
-    L = torch.zeros_like(A)
+    L = torch.zeros(A.shape, dtype=A.dtype, device=A.device)
+    L3 = L.view(-1, n, n)
     for cj in range(0, n, block):
         Pa = A[..., cj:, cj:cj + block]  # (*B, n - cj, b)
         if cj:
-            Pa = Pa - L[..., cj:, :cj] @ L[..., cj:cj + block, :cj].mT
+            P = Pa.clone(memory_format=torch.contiguous_format).view(
+                -1, n - cj, block)
+            for k0 in range(0, cj, HISTORY_K_CHUNK):
+                k1 = min(k0 + HISTORY_K_CHUNK, cj)
+                P.baddbmm_(L3[:, cj:, k0:k1], L3[:, cj:cj + block, k0:k1].mT,
+                           alpha=-1.0)
+            Pa = P.view(Pa.shape)
         if use_k3:
             Lkk, invK = _panel_factor(Pa[..., :block, :])
         else:

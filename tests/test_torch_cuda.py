@@ -438,3 +438,98 @@ def test_fit_gp_kernels_match_library_route(dev):
     a, b = ll64(rk.params), ll64(rl.params)
     assert np.isfinite(a) and np.isfinite(b)
     assert abs(a - b) <= 1e-3 * abs(b), (a, b)
+
+
+# --- BASELINE config 5: K1 and K2 at the ensemble's shapes ------------------
+
+
+@pytest.mark.parametrize("B", [8192, 2048])
+def test_k2_at_the_ensemble_batch(dev, B):
+    """K2 at config 5's (E x R = 8192, 64, 64) fit batch and (E = 2048, 64,
+    64) predict batch (one CTA per matrix at these batches): against its
+    plain version and float64, lower triangular, 20 calls bitwise equal."""
+    A = _grams(np.random.default_rng(B), B, 64)
+    Ad = A.to(dev)
+    L = k2.cholesky(Ad)
+    Lp = k2.cholesky_plain(Ad)
+    L64 = torch.linalg.cholesky(A.double())
+    torch.cuda.synchronize()
+    scale = L64.abs().max().item()
+    assert torch.equal(L, torch.tril(L))
+    assert (L.cpu().double() - L64).abs().max().item() <= K2_RTOL * scale
+    assert (L - Lp).abs().max().item() <= K2_RTOL * scale
+    for _ in range(19):
+        assert torch.equal(k2.cholesky(Ad), L)
+
+
+@pytest.mark.parametrize("route,B,n1,n2", [("gram", 8192, 64, 64),
+                                           ("cross", 2048, 64, 256)])
+def test_k1_at_the_ensemble_batch(dev, route, B, n1, n2):
+    """K1 at config 5's per-lane Gram (8192 lanes, each on its own (64, 4)
+    design) and predict's cross-covariance (2048 members x 256 queries),
+    d = 4, against its plain version."""
+    gram = route == "gram"
+    rng = np.random.default_rng(B + n2)
+    U, V, amp, g = (t.to(dev) for t in _k1_inputs(rng, B, n1, n2, 4, gram))
+    got = k1.pairwise_covariance(U, V, amp, g, "power_exponential", gram)
+    want = k1.pairwise_covariance_plain(U, V, amp, g, "power_exponential",
+                                        gram)
+    torch.cuda.synchronize()
+    assert got.shape == (B, n1, n2)
+    assert (got - want).abs().max().item() <= K1_ATOL * 2.0
+    if gram:
+        assert torch.equal(got, got.mT)
+
+
+def test_fit_ensemble_on_the_card(dev):
+    """A small float32 fit_ensemble on K1 + K2 (E = 16 members x R = 2
+    restarts, N = 32, d = 4, 6 steps) and predict_ensemble: one K1 and one
+    K2 launch per objective evaluation over all 32 lanes, two K1 and one K2
+    in predict; every member finite; the float32 best thetas scored by the
+    float64 LML within 1e-2 of the float64 fit's best from the same starts
+    (the float32 jitter floor on both). After 6 steps neither trajectory
+    has converged, so the two sit apart by float32 noise: the plain
+    versions on the CPU measured up to 7.1e-4 (16 members); a broken or
+    misrouted fit is off by O(1)."""
+    import dataclasses
+
+    from madaiemulator_tpu_torch.models import fit, gp
+    from madaiemulator_tpu_torch.ops import kernels
+    from madaiemulator_tpu_torch.parallel import ensemble
+    from madaiemulator_tpu_torch.utils.config import GPConfig
+
+    E, R, N, d = 16, 2, 32, 4
+    rng = np.random.default_rng(3)
+    X = rng.uniform(size=(E, N, d))
+    f = rng.uniform(1.0, 4.0, size=(E, 1))
+    y = np.sin(f * X[..., 0]) + X[..., 1] ** 2
+    Xt = torch.tensor(X, dtype=torch.float32, device=dev)
+    yt = torch.tensor(y, dtype=torch.float32, device=dev)
+    cfg = GPConfig(nparams=d, regression_order=1, n_restarts=R,
+                   max_opt_steps=6)
+    k1_0, k2_0 = k1.launches, k2.launches
+    res = ensemble.fit_ensemble(torch.Generator().manual_seed(0), Xt, yt,
+                                cfg)
+    mean, var = ensemble.predict_ensemble(res.params, Xt, yt, Xt[:, :8], cfg)
+    torch.cuda.synchronize()
+    n_evals = res.stats["n_vg_calls"] + res.stats["n_v_calls"]
+    assert k1.launches - k1_0 == n_evals + 2
+    assert k2.launches - k2_0 == n_evals + 1
+    assert bool(torch.isfinite(res.log_likelihood).all())
+    assert mean.shape == (E, 8) and bool(torch.isfinite(mean).all())
+
+    g = torch.Generator().manual_seed(0)
+    draws = [fit.sample_restarts(g, cfg, R) for _ in range(E)]
+    u0 = kernels.GPParams(*(torch.stack(a).double().to(dev)
+                            for a in zip(*draws)))
+    cfg64 = dataclasses.replace(
+        cfg, jitter=kernels.effective_jitter_frac(N, torch.float32, cfg))
+    X64, y64 = Xt.double(), yt.double()
+    r64 = ensemble.fit_ensemble_from_starts(u0, X64, y64, cfg64, 6)
+    with torch.no_grad():
+        at32 = gp.log_marginal_likelihood(
+            kernels.GPParams(*(a.double() for a in res.params)),
+            gp.GPData(X=X64, y=y64), cfg64)
+    best = r64.log_likelihood
+    short = ((best - at32) / best.abs().clamp(min=1.0)).max().item()
+    assert short <= 1e-2, short

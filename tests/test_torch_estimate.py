@@ -404,6 +404,20 @@ def _sgpr_state(tmp_path):
     return str(p)
 
 
+def _v3_npz_state(tmp_path):
+    """A dense .npz snapshot of grammar version 3 (gradient-enhanced)."""
+    p = str(tmp_path / "v3.npz")
+    np.savez(p, magic=np.array(["MADAIEMULATOR_TPU_SNAPSHOT"]),
+             version=np.array([3]))
+    return p
+
+
+def _mf_state(tmp_path):
+    p = tmp_path / "mf_state.txt"
+    p.write_text("MADAIEMULATOR_TPU_SNAPSHOT_MF 1\n")
+    return str(p)
+
+
 UNPORTED = {
     "fit_method": lambda tmp: ["estimate_thetas", SIN1D, "s.txt",
                                "--fit_method", "iterative"],
@@ -419,12 +433,11 @@ UNPORTED = {
         "estimate_thetas", SIN1D, "s.txt", "--update_precision", "high"],
     "cholesky_blocked": lambda tmp: ["estimate_thetas", SIN1D, "s.txt",
                                      "--cholesky_method", "blocked"],
-    "npz_state": lambda tmp: ["estimate_thetas", SIN1D, "s.npz"],
+    "npz_state": lambda tmp: ["print_thetas", _v3_npz_state(tmp)],
     "multifidelity": lambda tmp: ["estimate_thetas", _mf_file(tmp), "s.txt"],
     "print_thetas_sgpr": lambda tmp: ["print_thetas", _sgpr_state(tmp)],
     "convert_sgpr": lambda tmp: ["convert", _sgpr_state(tmp), "o.txt"],
-    "convert_to_npz": lambda tmp: ["convert", str(GOLDEN / "sin1d_powerexp"
-                                                  / "state.txt"), "o.npz"],
+    "convert_to_npz": lambda tmp: ["convert", _mf_state(tmp), "o.npz"],
 }
 # the JAX CLI's matrix-free / host-fit tuning flags, which nothing reads yet
 UNPORTED.update({

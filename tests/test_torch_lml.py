@@ -56,6 +56,25 @@ def test_left_cholesky_k3_batched_and_non_spd():
         tl.left_cholesky(torch.from_numpy(A), block=64, diag="pallas_interpret")
 
 
+@pytest.mark.parametrize("diag,dtype,tol", [("xla", np.float64, 1e-12),
+                                            ("pallas", np.float32, 1e-5)])
+def test_left_cholesky_history_in_k_chunks(monkeypatch, diag, dtype, tol):
+    """The history product summed in k-chunks (96 columns here, so the last
+    chunk of a panel is partial) on a batch of two: each member against the
+    JAX left_cholesky of the same matrix (float64: both library panels;
+    float32: the plain K3 against a float64 factor)."""
+    monkeypatch.setattr(tl, "HISTORY_K_CHUNK", 96)
+    A = np.stack([_spd(4, 384), _spd(5, 384)]).astype(dtype)
+    got = tl.left_cholesky(torch.from_numpy(A), block=64, diag=diag)
+    for i in range(2):
+        want = (np.asarray(jl.left_cholesky(jnp.asarray(A[i]), block=64))
+                if dtype == np.float64
+                else np.linalg.cholesky(A[i].astype(np.float64)))
+        np.testing.assert_allclose(got[i].numpy(), want, rtol=0,
+                                   atol=tol * np.abs(want).max())
+    assert torch.equal(got, torch.tril(got))
+
+
 @pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5), (np.float64, 1e-12)])
 def test_tri_inv_block_matches_jax(dtype, tol):
     L = np.linalg.cholesky(_spd(3, 160)).astype(dtype)

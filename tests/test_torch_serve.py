@@ -256,6 +256,7 @@ def test_port_imports_no_jax():
         "import madaiemulator_tpu_torch.cli, madaiemulator_tpu_torch.io.snapshot\n"
         "import madaiemulator_tpu_torch.models.multivariate\n"
         "import madaiemulator_tpu_torch.models.fit\n"
+        "import madaiemulator_tpu_torch.parallel.ensemble\n"
         "import madaiemulator_tpu_torch.ops.hopper.build\n"
         "import madaiemulator_tpu_torch.ops.hopper.cholesky\n"
         "import madaiemulator_tpu_torch.ops.hopper.pairwise\n"
