@@ -29,19 +29,25 @@ It imports no jax. Phases, in order; any failure exits non-zero:
                emulator (N=512, d=6, t=15, r=4 after PCA), served in-process
                on the kernels (launch counters reset before, read after)
                against float64, then through `interactive_mode` as a
-               subprocess; precompute, predict-1024 and predict-1 times and
-               profiles.
+               subprocess; the same on the GEMM-only fast route
+               (`--serve_method fast`); precompute, predict-1024 and
+               predict-1 times and profiles.
   6. config4 — BASELINE config 4 at full width (N=16,384, d=8, power-
                exponential alpha=2, regression_order=1; data as
                bench/bench_large_n.py draws it): left_cholesky on both
                panel routes at blocks 512 / 1024 (residual gate on the
-               bench's SPD matrix, float64 comparison on the Gram), TF32
-               controls that the float32 gates must reject, the float32
+               bench's SPD matrix, float64 comparison on the Gram), the
+               one-pass TF32 tier ("default") as the control the float32
+               gates must reject, the update-tier table (N=4,096 at cond
+               1e3 .. 1e7: each tier's factor and likelihood error against
+               float64, and the "high" threshold held to it), the float32
                LML on each Gram x factorization route (not gated); then the
                main path through the entry points: the LML value and
                closed-form gradient, a 3-step 2-restart fit_gp_host, and
-               serving 8,192 queries, each against float64; times, the
-               value+grad memory peak and profiles after it.
+               serving 8,192 queries, each against float64; the fast
+               (GEMM-only) serve of the same queries; each tier's factor,
+               value+grad and Cinv GEMM at a theta where "auto" picks
+               "high"; times, the value+grad memory peak and profiles.
   7. config3 — BASELINE config 3 at full width (N=512, d=6, t=15, PCA 0.99
                -> r components, regression_order=1, power-exponential
                alpha=2, 4 restarts x 40 LBFGS steps; data as
@@ -67,16 +73,32 @@ It imports no jax. Phases, in order; any failure exits non-zero:
                beside the library calls; the float32 fit against a float64
                fit of the first 256 members from the same starts, serving
                against float64, member 0 against a fit of it alone.
+  9. gradient — a gradient-enhanced emulator at config 3's width (N=512,
+               d=6, t=15 -> r PCs, power-exponential alpha=2,
+               regression_order=1, float32) fitted on values, their
+               closed-form gradients and per-point noise (4 restarts x 10
+               steps: config 3 takes 40), then values and gradients served;
+               the joint Gram (3,584 rows, 7 panels of 512) puts K3 at
+               (16,512,512), held against its plain version on the path's
+               own panels and timed; the float32 fit scored by float64; the
+               v3 snapshot served at float32 against float64; the CLI
+               (estimate_thetas --noise_file --gradients_file, then
+               interactive_mode on the version-3 snapshot).
 
 The launch counters are set to 0 just before each main path (phase 5's
 serve, phase 6's value+grad -> fit -> serve, phase 7's fit_multivariate,
-phase 8's fit_ensemble -> predict_ensemble) and read just after it. Phase 5
-fails if a kernel of its path never launched; phase 6 requires K3 to launch
+phase 8's fit_ensemble -> predict_ensemble, and the new paths: phase 5's
+fast serve, phase 6's fast serve and tier runs, phase 9's fit -> serve)
+and read just after it. Phase 5 fails if a kernel of its path never
+launched, and requires K1 = 2 and K2 = 1 on its fast path; phase 6 requires K3 to launch
 exactly once per diagonal panel of every factorization the path makes, and
 K1 once per Gram and per query chunk; phase 7 requires K1 and K2 to launch
 exactly once per objective evaluation the fit reports, plus once each for
 the serve precompute; phase 8 likewise, plus two K1 (Gram, cross) and one
-K2 for predict_ensemble. Before the last line it prints one JSON line with
+K2 for predict_ensemble; phase 9 requires K1 = K2 = 0 (the joint Gram and
+its cross covariances are library math, as in the JAX package) and K3 =
+7 panels x (objective evaluations + 1). Before the last line it prints one
+JSON line with
 each kernel's launches (`launches_by_path`: each path's own count;
 `launches`: config 5's where that path runs the kernel, else config 3's
 fit's, else config 4's, else the serve path's), its error against the plain
@@ -84,13 +106,14 @@ version (the largest over the shapes checked), its time, the plain
 version's, the library call's (null where no single PyTorch call computes
 the function) and its bound (K2 also its error, time and cluster size at
 config 3's lane batch, `fit_batch`; K1 and K2 their config-5 shapes,
-`config5`); the last line is {"ok": true, "device": ...}.
+`config5`; K3 its gradient path's lane batch, `gradient_batch`); the last
+line is {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
+import collections
 import dataclasses
 import json
 import pathlib
@@ -131,21 +154,22 @@ C4_N, C4_D, C4_M = 16384, 8, 8192
 C4_RESIDUAL = 1e-5
 # Config 4 at theta (amp 1, nugget 1e-2, length scales 0.5; cond ~1e5):
 # float32 factor of the Gram vs the float64 factor of the same matrix,
-# relative to max|L|: measured 1.0e-4 to 1.18e-4 on the H100 on both panel
-# routes alike (K3 and the library's) while each panel's history product
-# was one GEMM over k up to N, so the gate is 5x that; the TF32 control
-# below must exceed it. Summed in k-chunks of 2048 (`linalg.HISTORY_K_CHUNK`)
-# the product reaches 3.2e-5 to 3.6e-5 (`tools/f32_factor_error.py` has
-# the diagnosis).
-C4_GRAM_FACTOR_RTOL = 5e-4
+# relative to max|L|. On the H100 each panel's history product as one
+# float32 GEMM over k up to N gave 1.0e-4 to 1.18e-4, in k-chunks of 2048
+# 3.2e-5 to 3.6e-5, formed in float64 and rounded once (the "highest" tier
+# now) 5.6e-6 (`tools/f32_factor_error.py`); the gate is ~10x that, and the
+# one-pass TF32 tier ("default") must exceed it.
+C4_GRAM_FACTOR_RTOL = 5e-5
 # LML float32 (kernels) vs float64 (library) at theta: value relative to
-# |ll64|, gradient relative to max|g64|: measured 9.9e-5 for the value with
-# the one-GEMM history (7.8e-6 in k-chunks; the float64 factor of the same
-# float32 Gram is 5e-7 from ll64), 3.2e-4 to 3.6e-4 for the gradient on the
-# H100; each Gram x factorization route is printed beside, and the TF32
-# control must exceed the value gate.
-C4_LML_RTOL = 5e-4
-C4_GRAD_RTOL = 1e-2
+# |ll64|, gradient relative to max|g64|. The value: 9.9e-5 with the one-GEMM
+# history, 7.8e-6 in k-chunks, 5.7e-7 with the float64 history product
+# (the float64 factor of the same float32 Gram is 5e-7 from ll64); the gate
+# is ~10x that, and the "default" tier must exceed it.
+C4_LML_RTOL = 5e-6
+# The gradient: 3.2e-4 to 3.6e-4 with the chunked history and 3.2e-4 with
+# the float64 one (its amp entry; the others <= 2e-6), from the backward's
+# k = N Cinv SGEMM: the gate is ~3x that.
+C4_GRAD_RTOL = 1e-3
 # Serving at theta, float32 vs float64: mean scale and prior variance.
 C4_SERVE_TOL = 1e-3
 # Config 3 (bench/bench_multivariate.py:57-75): N=512 heavy-ion-like runs in
@@ -201,6 +225,32 @@ C5_SERVE_TOL = 1e-3
 # Member 0 of the float64 ensemble against fit_one_start on member 0 alone
 # (its restart LMLs, relative): measured 3.6e-12.
 C5_MEMBER_RTOL = 1e-9
+# The gradient path (phase 9): config 3's width (N=512 in d=6, t=15, PCA
+# 0.99, power-exponential alpha=2, regression_order=1) trained on values,
+# their gradients and noise at float32; G_R restarts x G_STEPS L-BFGS steps
+# (config 3 takes 40 steps: cut in depth), G_M queries served. The joint
+# Gram has N(1+d) = 3,584 rows, 7 panels of 512.
+G_N, G_D, G_T, G_PCA, G_R, G_STEPS, G_M = 512, 6, 15, 0.99, 4, 10, 1024
+# K3 on the path's own panels: backward error (which the panels' condition
+# does not inflate; measured 6.3e-7 on the H100), forward distance from the
+# plain version relative to max|L| (1.15e-4: conditioning, the plain
+# version sums in another order), and |Linv L - I| (1.4e-4).
+G_K3_RESIDUAL, G_K3_RTOL, G_K3_INV = 1e-5, 5e-4, 1e-3
+# The float32 fit's best thetas scored by the float64 LML, short of a
+# float64 fit from the same starts, over max(1, |best|): measured -1.5e-2
+# to 3.5e-3 (the float32 fit ahead on one component).
+G_LL_RTOL = 1e-2
+# Serving the v3 snapshot, float32 vs float64 (the float32 jitter floor on
+# both): means over their scale, measured 8.4e-4 (values) and 5.2e-4
+# (gradients); variances over their prior variance, 1.1e-6 and 8.6e-6.
+G_SERVE_MEAN_TOL, G_SERVE_VAR_TOL = 2.5e-3, 1e-4
+# The update-tier table: left_cholesky on float32 SPD matrices of size
+# TIER_N at these condition numbers (the last, 1e7, near float32's 1/eps),
+# each tier against the float64 factor of the same matrix; TIER_GATE is the
+# "highest" tier's accuracy, which the JAX package's choice of "high" (kappa
+# <= 2e4) is held to.
+TIER_N, TIER_CONDS = 4096, (1e3, 1e4, 2e4, 1e5, 1e7)
+TIER_GATE = 5e-4
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 rate and FP32 outside the
 # tensor cores (the kernels run full FP32 FFMA; TF32 is off).
 H100_BYTES_PER_S = 3.35e12
@@ -236,17 +286,6 @@ def host_ms(fn, iters: int = 5) -> float:
         fn()
         torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
-
-
-@contextlib.contextmanager
-def _tf32():
-    """TF32 on for float32 matmuls inside the block: the control run that
-    shows a float32 gate rejects a lower precision."""
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def phase_device() -> str:
@@ -829,12 +868,13 @@ def _slice_snapshot(path: str, rng) -> tuple:
     return queries, pnames, onames, r
 
 
-def _serve_over_pipe(path, batches, d, t, header):
+def _serve_over_pipe(path, batches, d, t, header, extra=()):
     """Drive `interactive_mode` on the card with one request batch at a
     time; returns the answers, (sum of batch sizes, 2t)."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "madaiemulator_tpu_torch.cli",
-         "interactive_mode", path, "--device", "cuda", "--dtype", "float32"],
+         "interactive_mode", path, "--device", "cuda", "--dtype", "float32",
+         *extra],
         cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True,
     )
@@ -867,11 +907,13 @@ def _serve_over_pipe(path, batches, d, t, header):
     return np.concatenate(answers, axis=0)
 
 
-def phase_slice(dev, rng, smi) -> dict:
+def phase_slice(dev, rng, smi) -> tuple:
     from madaiemulator_tpu_torch.io.snapshot import read_snapshot
     from madaiemulator_tpu_torch.models.multivariate import (
         _vmapped_states,
+        precompute_fast_multivariate,
         predict_multivariate,
+        predict_multivariate_fast,
     )
     from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
     from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
@@ -926,6 +968,40 @@ def phase_slice(dev, rng, smi) -> dict:
               f"ok; vs in-process float32 mean {sm:.3g} x scale, var "
               f"{sv:.3g} x prior var (tol {SERVER_TOL})")
 
+        # GEMM-only serving, its own path: the counts set to 0 just before
+        # the load + fast precompute + predict 1024, read just after
+        k1.launches = k2.launches = 0
+        emu_f, _, _ = read_snapshot(path, device=dev, dtype=torch.float32)
+        fast = precompute_fast_multivariate(emu_f)
+        fmean, fvar = predict_multivariate_fast(emu_f, fast, queries)
+        torch.cuda.synchronize()
+        launches_fast = {"pairwise_covariance": k1.launches,
+                         "cholesky": k2.launches}
+        require(launches_fast == {"pairwise_covariance": 2, "cholesky": 1},
+                f"slice fast path launches {launches_fast}: K1 = Gram + one "
+                f"query cross, K2 = one factorization")
+        fm = (fmean.double() - m64).abs().max().item() / scale
+        fv = (fvar.double() - v64).abs().max().item() / pv
+        require(fm <= SLICE_F32_TOL and fv <= SLICE_F32_TOL,
+                f"slice fast float32 vs float64: mean {fm:.3g}, var {fv:.3g}")
+        served = _serve_over_pipe(path, batches, d, t, header,
+                                  ("--serve_method", "fast"))
+        ref = np.concatenate([
+            torch.cat(predict_multivariate_fast(emu_f, fast, b), dim=1)
+            .cpu().double().numpy() for b in batches])
+        sm = np.abs(served[:, :t] - ref[:, :t]).max() / scale
+        sv = np.abs(served[:, t:] - ref[:, t:]).max() / pv
+        require(sm <= SERVER_TOL and sv <= SERVER_TOL,
+                f"fast server vs in-process: mean {sm:.3g}, var {sv:.3g}")
+        print(f"slice fast (GEMM-only) in-process float32 (kernels: "
+              f"{launches_fast}) vs float64: mean {fm:.3g} x scale, var "
+              f"{fv:.3g} x prior var (tol {SLICE_F32_TOL}); vs the dense "
+              f"float32 route: mean "
+              f"{(fmean - mean).abs().max().item() / scale:.3g}, var "
+              f"{(fvar - var).abs().max().item() / pv:.3g}; served over "
+              f"interactive_mode --serve_method fast vs in-process: mean "
+              f"{sm:.3g}, var {sv:.3g} (tol {SERVER_TOL})")
+
         # times at the slice width, kernel path and library path
         times = {}
         for label, cfg in (
@@ -950,7 +1026,18 @@ def phase_slice(dev, rng, smi) -> dict:
             cell="slice")
         profile_once("predict_1024", lambda: predict_multivariate(
             emu, queries), times["kernels"][1], smi, cell="slice")
-    return launches
+        tf = (host_ms(lambda: precompute_fast_multivariate(emu_f)),
+              host_ms(lambda: predict_multivariate_fast(emu_f, fast,
+                                                        queries)),
+              host_ms(lambda: predict_multivariate_fast(emu_f, fast,
+                                                        queries[:1]),
+                      iters=50))
+        print(f"slice times (fast, float32, {smi}): explicit inverses on "
+              f"top of the serve states {tf[0]:.3f} ms; predict 1024 "
+              f"queries {tf[1]:.3f} ms; predict 1 query {tf[2]:.3f} ms")
+        profile_once("predict_1024_fast", lambda: predict_multivariate_fast(
+            emu_f, fast, queries), tf[1], smi, cell="slice")
+    return launches, launches_fast
 
 
 def profile_once(what: str, fn, wall_ms: float, smi: str,
@@ -1065,19 +1152,20 @@ def phase_config4(dev, seed: int, smi: str) -> dict:
                 lambda b=block, g=diag: linalg.left_cholesky(
                     M, block=b, diag=g), iters=2)
     del M
-    # control: the same factor with TF32 on for the GEMMs must fail the
+    # the one-pass TF32 tier ("default") on the same Gram must fail the
     # gate, or the gate could not tell full FP32 from a lower precision
-    with _tf32():
-        for diag in ("pallas", "xla"):
-            L = linalg.left_cholesky(C, block=512, diag=diag)
-            e = (L.double() - L64).abs().max().item() / l64max
-            # NaN (the factorization failed) is a rejection too
-            check(not e <= C4_GRAM_FACTOR_RTOL,
-                  f"TF32 control, Gram block 512 diag={diag}: factor vs "
-                  f"float64 {e:.3g} x max|L|, not <= {C4_GRAM_FACTOR_RTOL} "
-                  f"(the gate rejects TF32)")
-            del L
+    for diag in ("pallas", "xla"):
+        L = linalg.left_cholesky(C, block=512, update_precision="default",
+                                 diag=diag)
+        e = (L.double() - L64).abs().max().item() / l64max
+        # NaN (the factorization failed) is a rejection too
+        check(not e <= C4_GRAM_FACTOR_RTOL,
+              f"tier 'default' (one TF32 pass), Gram block 512 diag={diag}:"
+              f" factor vs float64 {e:.3g} x max|L|, not <= "
+              f"{C4_GRAM_FACTOR_RTOL} (the gate rejects one TF32 pass)")
+        del L
     del C, L64
+    _tier_table(dev, seed, smi, check)
 
     # where the float32 LML's distance from float64 comes from (not gated):
     # each float32 Gram against the float64 Gram, and the LML value on each
@@ -1106,9 +1194,9 @@ def phase_config4(dev, seed: int, smi: str) -> dict:
                   f"(ll64 {ll64:.8g})")
     del C64
 
-    def value_and_grad(p, d):
+    def value_and_grad(p, d, c=cfg):
         p = kernels.GPParams(*(a.detach().requires_grad_() for a in p))
-        ll = gp.log_marginal_likelihood(p, d, cfg)
+        ll = gp.log_marginal_likelihood(p, d, c)
         return ll, torch.autograd.grad(ll, p)
 
     def flat(g):
@@ -1120,17 +1208,18 @@ def phase_config4(dev, seed: int, smi: str) -> dict:
         torch.cuda.synchronize()
         return res
 
-    # control: the LML value and gradient with TF32 on
-    with _tf32():
-        ll_tf, g_tf = value_and_grad(theta, data)
+    # the LML value and gradient at the "default" tier (its factorization
+    # one TF32 pass; its backward full FP32, as in the JAX package)
+    ll_tf, g_tf = value_and_grad(theta, data, dataclasses.replace(
+        cfg, cholesky_update_precision="default"))
     ll_tf = ll_tf.item()
     # [1] alone: the value tensor would keep the float64 factor alive
     g64 = flat(value_and_grad(theta64, data64)[1])
     g64max = g64.abs().max().item()
     ev = abs(ll_tf - ll64) / abs(ll64)
     check(not ev <= C4_LML_RTOL,
-          f"TF32 control: LML {ll_tf:.8g} vs float64: {ev:.3g} x |ll64|, not"
-          f" <= {C4_LML_RTOL} (the gate rejects TF32); gradient "
+          f"tier 'default': LML {ll_tf:.8g} vs float64: {ev:.3g} x |ll64|, "
+          f"not <= {C4_LML_RTOL} (the gate rejects one TF32 pass); gradient "
           f"{(flat(g_tf) - g64).abs().max().item() / g64max:.3g} x max|g64| "
           f"(not gated)")
     start = run_fit(0)  # the best of the starts, for the fit check
@@ -1167,9 +1256,12 @@ def phase_config4(dev, seed: int, smi: str) -> dict:
     check(np.isfinite(ll32) and ev <= C4_LML_RTOL,
           f"LML float32 {ll32:.8g} vs float64 {ll64:.8g}: {ev:.3g} x |ll64| "
           f"<= {C4_LML_RTOL}")
+    eg_each = ((g32 - g64).abs() / g64max).cpu().numpy()
     check(bool(torch.isfinite(g32).all()) and eg <= C4_GRAD_RTOL,
           f"LML gradient float32 vs float64: {eg:.3g} x max|g64| <= "
-          f"{C4_GRAD_RTOL}; g64 {np.array2string(g64.cpu().numpy(), precision=4)}")
+          f"{C4_GRAD_RTOL} (per entry [amp, nugget, ls...] "
+          f"{np.array2string(eg_each, precision=3)}); g64 "
+          f"{np.array2string(g64.cpu().numpy(), precision=4)}")
     best0, best3 = start.log_likelihood.item(), res.log_likelihood.item()
     check(np.isfinite(best3) and best3 >= best0,
           f"fit_gp_host 2 restarts x 3 steps: best logL {best3:.8g} >= best "
@@ -1194,6 +1286,38 @@ def phase_config4(dev, seed: int, smi: str) -> dict:
           f"serve the fitted thetas: {C4_M} finite means and variances "
           f"(ok={bool(stf.ok)})")
     del stf
+
+    # GEMM-only serving of the same queries, its own path: the counts set
+    # to 0 just before the fast precompute (factorization + the explicit
+    # inverses) and predict_fast, read just after
+    k1.launches = k2.launches = k3.launches = 0
+    fp = gp.precompute_fast_predictor(theta, data, cfg)
+    mfast, vfast = gp.predict_fast(fp, theta, data, Xs, cfg)
+    torch.cuda.synchronize()
+    launches_fast = {"pairwise_covariance": k1.launches,
+                     "cholesky": k2.launches, "panel_factor": k3.launches}
+    check(launches_fast == {"pairwise_covariance": 1 + chunks, "cholesky": 0,
+                            "panel_factor": panels},
+          f"config-4 fast path (precompute_fast_predictor, predict_fast) "
+          f"launches {launches_fast}: K1 = 1 Gram + {chunks} query chunks, "
+          f"K3 = {panels} panels")
+    fm = (mfast.double() - m64).abs().max().item() / scale
+    fv = (vfast.double() - v64).abs().max().item() / prior
+    check(bool(torch.isfinite(mfast).all() and torch.isfinite(vfast).all())
+          and fm <= C4_SERVE_TOL and fv <= C4_SERVE_TOL,
+          f"fast serve {C4_M} queries float32 vs float64 dense: mean "
+          f"{fm:.3g} x scale, var {fv:.3g} x prior var <= {C4_SERVE_TOL}; "
+          f"vs the float32 dense route: mean "
+          f"{(mfast - mean).abs().max().item() / scale:.3g}, var "
+          f"{(vfast - var).abs().max().item() / prior:.3g}")
+    times["fast_inverse"] = host_ms(lambda: gp.fast_predictor_from_state(st),
+                                    iters=2)
+    times["fast_predict"] = host_ms(
+        lambda: gp.predict_fast(fp, theta, data, Xs, cfg), iters=2)
+    profile_once("predict_fast", lambda: gp.predict_fast(
+        fp, theta, data, Xs, cfg), times["fast_predict"], smi)
+    del fp, mfast, vfast
+    launches_tiers = _config4_tiers(dev, data, data64, cfg, times, check, smi)
 
     # 3. times of the path's calls, after the counted run; the value+grad
     # memory peak with no serve state alive
@@ -1235,6 +1359,163 @@ def phase_config4(dev, seed: int, smi: str) -> dict:
     profile_once("value_grad", lambda: value_and_grad(theta, data),
                  times["value_grad"], smi)
     require(not failed, f"config4: {len(failed)} checks failed: {failed}")
+    return launches, launches_fast, launches_tiers
+
+
+def _ll_from_factor(L: torch.Tensor, y: torch.Tensor) -> float:
+    """-0.5 y^T A^-1 y - sum log diag L for A = L L^T, in float64: the
+    likelihood's factor-dependent terms."""
+    L = L.double()
+    z = torch.linalg.solve_triangular(L, y[:, None], upper=False)[:, 0]
+    return (-0.5 * (z * z).sum() - torch.log(torch.diagonal(L)).sum()).item()
+
+
+def _tier_table(dev, seed: int, smi: str, check) -> None:
+    """left_cholesky (K3 panels, block 512) at each update tier on float32
+    SPD matrices Q diag(lambda) Q^T of N=TIER_N with lambda log-spaced over
+    [1, cond]: factor and likelihood-term error against the float64 factor
+    of the same float32 matrix, and wall. The "high" tier at the largest
+    condition bound `choose_update_precision` routes to it must stay inside
+    the "highest" tier's accuracy gate."""
+    from madaiemulator_tpu_torch.ops import linalg
+
+    # each tier's GEMM on a sum of squares a a^T against float64: the max
+    # error over max|a a^T| and the mean signed error of the diagonal (the
+    # history product's own diagonal is such a sum) over its mean
+    ga = torch.Generator(device=dev).manual_seed(seed + 1)
+    for k in (512, 4096, 16384):
+        a = torch.randn(512, k, generator=ga, device=dev)
+        want = a.double() @ a.double().mT
+        errs = []
+        for tier in linalg.TIERS[::-1]:
+            e = linalg.matmul_tier(a, a.mT, tier).double() - want
+            errs.append(f"{tier!r} max {(e.abs().max() / want.abs().max()).item():.3g}"
+                        f", mean diagonal {(e.diagonal().mean() / want.diagonal().mean()).item():.3g}")
+        print(f"tier GEMM a a^T, a (512, {k}) float32, vs float64: "
+              + "; ".join(errs) + f" ({smi})")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    Q, _ = torch.linalg.qr(torch.randn(TIER_N, TIER_N, generator=gen,
+                                       device=dev, dtype=torch.float64))
+    y = torch.randn(TIER_N, generator=gen, device=dev, dtype=torch.float64)
+    for cond in TIER_CONDS:
+        lam = torch.logspace(0.0, float(np.log10(cond)), TIER_N, device=dev,
+                             dtype=torch.float64)
+        A32 = ((Q * lam) @ Q.mT).float()
+        A32 = 0.5 * (A32 + A32.mT)
+        A64 = A32.double()
+        ev = torch.linalg.eigvalsh(A64)
+        L64 = torch.linalg.cholesky(A64)
+        ll64 = _ll_from_factor(L64, y)
+        l64max = L64.abs().max().item()
+        for tier in linalg.TIERS[::-1]:
+            L = linalg.left_cholesky(A32, block=512, update_precision=tier,
+                                     diag="pallas")
+            ef = (L.double() - L64).abs().max().item() / l64max
+            el = abs(_ll_from_factor(L, y) - ll64) / abs(ll64)
+            wall = host_ms(lambda t=tier: linalg.left_cholesky(
+                A32, block=512, update_precision=t, diag="pallas"), iters=3)
+            print(f"tier table N={TIER_N} cond {cond:.0e} (float32 matrix: "
+                  f"{(ev[-1] / ev[0]).item():.3g}) tier {tier!r}: factor vs "
+                  f"float64 {ef:.3g} x max|L|, likelihood terms "
+                  f"{el:.3g} x |ll64|, wall {wall:.3f} ms ({smi})")
+            if tier == "high" and cond <= linalg.HIGH_TIER_KAPPA_MAX:
+                check(ef <= TIER_GATE,
+                      f"tier 'high' (3xTF32) at cond {cond:.0e} <= the "
+                      f"'high' threshold {linalg.HIGH_TIER_KAPPA_MAX:.0e}: "
+                      f"factor {ef:.3g} x max|L| <= {TIER_GATE} (the "
+                      f"threshold stands)")
+            if tier == "highest" and cond <= 1e5:
+                check(ef <= TIER_GATE,
+                      f"tier 'highest' at cond {cond:.0e}: factor {ef:.3g} "
+                      f"x max|L| <= {TIER_GATE}")
+            del L
+        del A32, A64, L64
+
+
+def _config4_tiers(dev, data, data64, cfg, times: dict, check,
+                   smi: str) -> dict:
+    """Config 4 at each update tier, at a theta where "auto" picks "high"
+    (amp 1, nugget 2, length scales 0.5: kappa bound ~8.2e3): the counted
+    path (one LML value+grad a tier, the counts set to 0 just before and
+    read just after), then each tier's factor and value+grad against
+    float64, their walls, and the Cinv GEMM's share of the value+grad."""
+    from madaiemulator_tpu_torch.models import gp
+    from madaiemulator_tpu_torch.ops import kernels, linalg
+    from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
+    from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
+    from madaiemulator_tpu_torch.ops.hopper import panel as k3
+
+    def at(dtype, nugget):
+        return kernels.GPParams(
+            log_amp=torch.zeros((), device=dev, dtype=dtype),
+            log_nugget=torch.log(torch.tensor(nugget, device=dev,
+                                              dtype=dtype)),
+            log_ls=torch.log(torch.full((C4_D,), 0.5, device=dev,
+                                        dtype=dtype)))
+
+    auto = dataclasses.replace(cfg, cholesky_update_precision="auto")
+    picks = {nug: gp.resolve_update_precision(at(torch.float32, nug), C4_N,
+                                              auto).cholesky_update_precision
+             for nug in (1e-2, 2.0)}
+    check(picks == {1e-2: "highest", 2.0: "high"},
+          f"'auto' at N={C4_N}: nugget 1e-2 (kappa bound "
+          f"{linalg.gp_kappa_bound(C4_N, 1.0, 1e-2):.3g}) -> {picks[1e-2]!r},"
+          f" nugget 2 (kappa bound {linalg.gp_kappa_bound(C4_N, 1.0, 2.0):.3g}"
+          f") -> {picks[2.0]!r}; threshold {linalg.HIGH_TIER_KAPPA_MAX:.3g}")
+    theta, theta64 = at(torch.float32, 2.0), at(torch.float64, 2.0)
+
+    def value_and_grad(p, d, c):
+        p = kernels.GPParams(*(a.detach().requires_grad_() for a in p))
+        ll = gp.log_marginal_likelihood(p, d, c)
+        return ll.detach(), torch.autograd.grad(ll, p)
+
+    def flat(g):
+        return torch.cat([a.reshape(-1).double() for a in g])
+
+    cfgs = {t: dataclasses.replace(cfg, cholesky_update_precision=t)
+            for t in linalg.TIERS}
+    k1.launches = k2.launches = k3.launches = 0
+    vg = {t: value_and_grad(theta, data, cfgs[t]) for t in cfgs}
+    torch.cuda.synchronize()
+    launches = {"pairwise_covariance": k1.launches, "cholesky": k2.launches,
+                "panel_factor": k3.launches}
+    panels = C4_N // cfg.cholesky_block
+    check(launches == {"pairwise_covariance": 3, "cholesky": 0,
+                       "panel_factor": 3 * panels},
+          f"config-4 tier path (one value+grad at each of 3 tiers) launches "
+          f"{launches}: K1 = 3 Grams, K3 = 3 x {panels} panels")
+    ll64, g64 = value_and_grad(theta64, data64, cfg)
+    ll64, g64 = ll64.item(), flat(g64)
+    C = kernels.gram_matrix(data.X, theta, cfg)
+    L64 = torch.linalg.cholesky(C.double())
+    l64max = L64.abs().max().item()
+    for t in linalg.TIERS[::-1]:
+        L = linalg.left_cholesky(C, block=cfg.cholesky_block,
+                                 update_precision=t, diag="pallas")
+        ef = (L.double() - L64).abs().max().item() / l64max
+        tf = host_ms(lambda: linalg.left_cholesky(
+            C, block=cfg.cholesky_block, update_precision=t, diag="pallas"),
+            iters=2)
+        # the backward's Cinv GEMM at the tier the backward runs it
+        bt = "high" if t == "high" else "highest"
+        Linv = linalg.tri_inv_block(L, precision=bt)
+        del L
+        tc = host_ms(lambda: linalg.matmul_tier(Linv.mT, Linv, bt), iters=2)
+        del Linv
+        tv = host_ms(lambda: value_and_grad(theta, data, cfgs[t]), iters=2)
+        ev = abs(vg[t][0].item() - ll64) / abs(ll64)
+        eg = (flat(vg[t][1]) - g64).abs().max().item() / g64.abs().max().item()
+        times[f"tier_{t}_factor"], times[f"tier_{t}_value_grad"] = tf, tv
+        print(f"config4 tier {t!r} at nugget 2 (kappa bound "
+              f"{linalg.gp_kappa_bound(C4_N, 1.0, 2.0):.3g}): factor "
+              f"{tf:.3f} ms, vs float64 {ef:.3g} x max|L|; LML value+grad "
+              f"{tv:.3f} ms, value {ev:.3g} x |ll64|, gradient {eg:.3g} x "
+              f"max|g64|; Cinv GEMM ({bt}) {tc:.3f} ms = {tc / tv:.2f} of "
+              f"the value+grad ({smi})")
+        if t != "default":
+            check(ef <= TIER_GATE and ev <= TIER_GATE,
+                  f"tier {t!r} at nugget 2: factor {ef:.3g} x max|L|, LML "
+                  f"{ev:.3g} x |ll64| <= {TIER_GATE}")
     return launches
 
 
@@ -1847,6 +2128,317 @@ def phase_config5(dev, seed: int, smi: str) -> tuple:
                       "cholesky": (k2_err, k2_by)}
 
 
+def _gradient_data(rng):
+    """Config 3's recipe (`_heavy_ion_like`) with its closed-form output
+    gradients w.r.t. the raw inputs, (N, d, t), and per-point noise
+    variances in [0.5e-4, 2e-4] (the recipe's 0.01 noise level) that the
+    outputs carry."""
+    n, d, t = G_N, G_D, G_T
+    X = rng.uniform(size=(n, d))
+    k_lat = 4
+    mix = rng.standard_normal((k_lat, t)) * np.geomspace(1.0, 0.2,
+                                                         k_lat)[:, None]
+    lat = np.zeros((n, k_lat))
+    dlat = np.zeros((n, d, k_lat))
+    for i in range(k_lat):
+        a, b = i % d, (i + 1) % d
+        lat[:, i] = np.sin(2.5 * X[:, a] + 0.7 * i) + (X[:, b] - 0.4) ** 2
+        dlat[:, a, i] += 2.5 * np.cos(2.5 * X[:, a] + 0.7 * i)
+        dlat[:, b, i] += 2.0 * (X[:, b] - 0.4)
+    noise = rng.uniform(0.5e-4, 2e-4, n)
+    Y = lat @ mix + np.sqrt(noise)[:, None] * rng.standard_normal((n, t))
+    return X, Y, np.einsum("nak,kt->nat", dlat, mix), noise
+
+
+def _prior_grad_var(emu) -> float:
+    """Largest prior variance of an observable's partial derivative w.r.t. a
+    raw input: amp c_g / ell^2 per component, rotated and scaled back."""
+    from madaiemulator_tpu_torch.ops import kernels
+
+    p = emu.params
+    d = emu.X.shape[1]
+    cg = kernels.grad_prior_scale(emu.config)
+    ell = kernels._ell_vec(p, emu.config, d)  # (r, d)
+    comp = torch.exp(p.log_amp)[:, None] * cg / ell ** 2  # (r, d)
+    pca = emu.pca
+    w = pca.U ** 2 * pca.eigenvalues[None, :] * (pca.ystd ** 2)[:, None]
+    v = torch.einsum("ra,tr->at", comp, w) / emu.scaling.ranges[:, None] ** 2
+    return v.max().item()
+
+
+def phase_gradient(dev, seed: int, smi: str) -> tuple:
+    """A gradient-enhanced multivariate emulator at config 3's width
+    (N=512 in d=6, t=15 -> r PCs, power-exponential alpha=2,
+    regression_order=1, float32), trained on values, gradients and noise:
+    the joint Gram has N(1+d) = 3,584 rows, 7 panels at block 512, so
+    the fit's r x 4 lanes run K3 at (16, 512, 512) on 7 panels a
+    factorization. The main path (fit_multivariate -> serve values and
+    gradients) with exact launch counts; K3 against its plain version on
+    the path's own panels, timed; the float32 fit scored by float64 against
+    a float64 fit from the same restarts; serving against float64; the CLI
+    (estimate_thetas --noise_file --gradients_file -> version-3 snapshot ->
+    interactive_mode)."""
+    from madaiemulator_tpu_torch.io.modelfile import write_model_file
+    from madaiemulator_tpu_torch.io.snapshot import read_snapshot, write_snapshot
+    from madaiemulator_tpu_torch.models import fit, gp
+    from madaiemulator_tpu_torch.models.multivariate import (
+        _component_batch,
+        _vmapped_states,
+        fit_multivariate,
+        predict_multivariate,
+        predict_multivariate_gradient,
+    )
+    from madaiemulator_tpu_torch.ops import kernels, linalg
+    from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
+    from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
+    from madaiemulator_tpu_torch.ops.hopper import panel as k3
+    from madaiemulator_tpu_torch.utils.config import GPConfig
+
+    failed = []
+
+    def check(ok: bool, what: str) -> None:
+        print(f"gradient check {'ok' if ok else 'FAILED'}: {what}")
+        if not ok:
+            failed.append(what)
+
+    rng = np.random.default_rng([seed, 9])
+    X, Y, G, noise = _gradient_data(rng)
+    cfg = GPConfig(nparams=G_D, regression_order=1, n_restarts=G_R,
+                   max_opt_steps=G_STEPS)
+    lo, hi = X.min(0), X.max(0)
+    queries = lo + (hi - lo) * rng.uniform(size=(G_M, G_D))
+
+    def fit_at(dtype, config):
+        t0 = time.perf_counter()
+        emu = fit_multivariate(
+            torch.Generator().manual_seed(seed),
+            *(torch.tensor(a, dtype=dtype, device=dev) for a in (X, Y)),
+            config, pca_variance=G_PCA,
+            noise=torch.tensor(noise, dtype=dtype, device=dev),
+            gradients=torch.tensor(G, dtype=dtype, device=dev))
+        torch.cuda.synchronize()
+        return emu, time.perf_counter() - t0
+
+    # the main path, the counts set to 0 just before and read just after:
+    # the float32 fit on values + gradients + noise, then values and
+    # gradients served in-process at 1,024 queries. K3's inputs at the fit's
+    # lane batch are kept, the last factorization's, for the K3 check below
+    rows = G_N * (1 + G_D)
+    panels = -(-rows // cfg.cholesky_block)
+    by_batch = {}  # batch size -> the last `panels` K3 inputs of that size
+    orig = linalg._panel_factor
+
+    def record(P):
+        q = by_batch.setdefault(P.shape[0], collections.deque(maxlen=panels))
+        q.append(P.clone())
+        return orig(P)
+
+    k1.launches = k2.launches = k3.launches = 0
+    linalg._panel_factor = record
+    try:
+        emu, wall = fit_at(torch.float32, cfg)
+    finally:
+        linalg._panel_factor = orig
+    mean, var = predict_multivariate(emu, queries)
+    gmean, gvar = predict_multivariate_gradient(emu, queries)
+    torch.cuda.synchronize()
+    launches = {"pairwise_covariance": k1.launches, "cholesky": k2.launches,
+                "panel_factor": k3.launches}
+    st = emu.fit_stats
+    r = emu.n_components
+    lanes = r * G_R
+    n_evals = st["n_vg_calls"] + st["n_v_calls"]
+    print(f"gradient: N={G_N} d={G_D} t={G_T} -> r={r} components (PCA "
+          f"{G_PCA}), joint rows {rows} -> {panels} panels of "
+          f"{cfg.cholesky_block}, {G_R} restarts x {G_STEPS} steps = {lanes} "
+          f"lanes; fit_multivariate float32 {wall:.3f} s wall "
+          f"({n_evals / st['n_steps']:.2f} objective evaluations per step) "
+          f"({smi}); stats {st}")
+    # every factorization (the fit's objective evaluations over the lanes,
+    # and the serve precompute over the components) is one left-looking
+    # factor with one K3 launch per panel; the joint Gram and cross
+    # covariances are library math, so K1 and K2 never launch
+    check(launches == {"pairwise_covariance": 0, "cholesky": 0,
+                       "panel_factor": panels * (n_evals + 1)},
+          f"gradient path launches {launches}: K1 = K2 = 0, K3 = {panels} "
+          f"panels x ({n_evals} objective evaluations + 1 serve precompute)")
+    lls32 = emu.restart_log_likelihoods
+    check(bool(torch.isfinite(lls32).all()) and bool(emu.states.ok.all())
+          and mean.shape == var.shape == (G_M, G_T)
+          and gmean.shape == gvar.shape == (G_M, G_D, G_T)
+          and all(bool(torch.isfinite(a).all())
+                  for a in (mean, var, gmean, gvar)),
+          f"float32 fit: every restart finite, serve states SPD, finite "
+          f"values {tuple(mean.shape)} and gradients {tuple(gmean.shape)}; "
+          f"best logL {lls32.amax(dim=1).tolist()}")
+
+    # K3 on the path's own panels: those of the fit's last objective
+    # evaluation over the lanes
+    seen = list(by_batch.get(lanes, ()))
+    del by_batch
+    eb = ep = ea = ei = 0.0
+    for P in seen:
+        L, Linv = k3.panel_factor(P)
+        Lp, _ = k3.panel_factor_plain(P)
+        P64 = P.double()
+        eb = max(eb, ((L.double() @ L.double().mT - P64).abs().amax((1, 2))
+                      / P64.abs().amax((1, 2))).max().item())
+        ep = max(ep, ((L - Lp).abs().amax((1, 2))
+                      / Lp.abs().amax((1, 2))).max().item())
+        ea = max(ea, (L - Lp).abs().max().item())
+        eye = torch.eye(P.shape[-1], dtype=torch.float64, device=dev)
+        ei = max(ei, (Linv.double() @ L.double() - eye).abs().max().item())
+    check(len(seen) == panels and all(P.shape == (lanes, 512, 512)
+                                      for P in seen)
+          and eb <= G_K3_RESIDUAL and ep <= G_K3_RTOL and ei <= G_K3_INV,
+          f"K3 on the path's {len(seen)} panels of ({lanes},512,512): "
+          f"backward error max|LL^T - P| / max|P| {eb:.3g} <= "
+          f"{G_K3_RESIDUAL}; vs plain {ep:.3g} x max|L| <= {G_K3_RTOL}; "
+          f"max|Linv L - I| {ei:.3g} <= {G_K3_INV}")
+    P = seen[0]
+    eye = torch.eye(512, device=dev).expand(lanes, 512, 512)
+
+    def library_pair():
+        L, _ = torch.linalg.cholesky_ex(P)
+        return torch.linalg.solve_triangular(L, eye, upper=False)
+
+    k3_grad = {"B": lanes, "n": 512, "max_abs_err": ea, "rel_err": ep,
+               "backward_err": eb, "inv_err": ei,
+               "ms": cuda_ms(lambda: k3.panel_factor(P)),
+               "graph_ms": graph_ms(lambda: k3.panel_factor(P)),
+               "plain_ms": cuda_ms(lambda: k3.panel_factor_plain(P), iters=2,
+                                   warmup=1),
+               "library_ms": cuda_ms(library_pair),
+               "library_graph_ms": graph_ms(library_pair)}
+    k3_grad["bound_ms"], k3_grad["bound_by"] = bound_ms(
+        4 * (lanes * 512 * 513 / 2 + 2 * lanes * 512 * 512),
+        2 * lanes * 512 ** 3 / 3)
+    print(f"gradient K3 ({lanes},512,512) on the path's panel 0: kernel "
+          f"{k3_grad['ms']:.4f} ms (device, CUDA graph: "
+          f"{k3_grad['graph_ms']:.4f} ms), plain {k3_grad['plain_ms']:.4f} "
+          f"ms, library pair cholesky_ex + solve_triangular(L, I) "
+          f"{k3_grad['library_ms']:.4f} ms (graph "
+          f"{k3_grad['library_graph_ms']:.4f} ms), bound "
+          f"{k3_grad['bound_ms']:.5f} ms ({k3_grad['bound_by']}) ({smi})")
+    del seen, P
+
+    # one objective evaluation over the fit's lanes (value + closed-form
+    # gradient, each lane at its component's best theta): wall and profile
+    comp = _component_batch(emu.X, emu.Z, emu.noise, emu.dZ)
+    lo_b, hi_b = fit._bounds_arrays(cfg, torch.float32, dev)
+    vg, _ = fit._lane_objective(
+        emu.X, comp.y.repeat_interleave(G_R, 0),
+        comp.noise.repeat_interleave(G_R, 0), cfg, lo_b, hi_b,
+        fit._new_stats(), dY=comp.dY.repeat_interleave(G_R, 0))
+    u = fit._flatten_t(fit._params_to_u(emu.params, lo_b, hi_b))
+    u = u.repeat_interleave(G_R, 0)
+    vg_ms = host_ms(lambda: vg(u), iters=5)
+    print(f"gradient time value+grad over {lanes} lanes: {vg_ms:.3f} ms wall "
+          f"({smi})")
+    profile_once("value_grad", lambda: vg(u), vg_ms, smi, cell="gradient")
+
+    # the same fit at float64 (library panels) from the same restarts, of
+    # the same function: the float32 jitter floor set on both
+    jit32 = kernels.effective_jitter_frac(rows, torch.float32, cfg)
+    cfg64 = dataclasses.replace(cfg, jitter=jit32)
+    emu64, wall64 = fit_at(torch.float64, cfg64)
+    check(emu64.n_components == r, f"float64 PCA keeps r={r}")
+    best64 = emu64.restart_log_likelihoods.amax(dim=1)
+    p32 = kernels.GPParams(*(a.double() for a in emu.params))
+    d64 = _component_batch(emu64.X, emu64.Z, emu64.noise, emu64.dZ)
+    with torch.no_grad():
+        ll_at32 = gp.log_marginal_likelihood(p32, d64, cfg64)
+    short = ((best64 - ll_at32) / best64.abs().clamp(min=1.0)).tolist()
+    check(all(x <= G_LL_RTOL for x in short),
+          f"float32 best thetas scored by the float64 LML {ll_at32.tolist()} "
+          f"vs the float64 fit's best {best64.tolist()} ({wall64:.3f} s): "
+          f"short by {short} x max(1, |best|) <= {G_LL_RTOL}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # serving: the float32 emulator's v3 snapshot read at float32 and at
+        # float64, values and gradients at the same queries
+        state = str(pathlib.Path(tmp) / "state.txt")
+        write_snapshot(state, emu)
+        # the float32 read serves as a user would (its jitter floor is
+        # jit32); the float64 one gets the same floor, the same function
+        e32, _, _ = read_snapshot(state, device=dev, dtype=torch.float32)
+        e64, _, _ = read_snapshot(state, device=dev, dtype=torch.float64,
+                                  build_states=False)
+        e64 = e64._replace(config=dataclasses.replace(e64.config,
+                                                      jitter=jit32))
+        e64 = e64._replace(states=_vmapped_states(
+            e64.params, e64.X, e64.Z, e64.config, e64.noise, e64.dZ,
+            e64.dZ_noise))
+        m32, v32 = predict_multivariate(e32, queries)
+        m64, v64 = predict_multivariate(e64, queries)
+        g32, gv32 = predict_multivariate_gradient(e32, queries)
+        g64, gv64 = predict_multivariate_gradient(e64, queries)
+        scale = max(1.0, m64.abs().max().item())
+        gscale = max(1.0, g64.abs().max().item())
+        pv, pgv = _prior_var(e64), _prior_grad_var(e64)
+        dm = (m32.double() - m64).abs().max().item() / scale
+        dv = (v32.double() - v64).abs().max().item() / pv
+        dg = (g32.double() - g64).abs().max().item() / gscale
+        dgv = (gv32.double() - gv64).abs().max().item() / pgv
+        check(max(dm, dg) <= G_SERVE_MEAN_TOL
+              and max(dv, dgv) <= G_SERVE_VAR_TOL,
+              f"serve the v3 snapshot, {G_M} queries, float32 vs float64 "
+              f"(jitter {jit32:.3g} x amp on both): values mean {dm:.3g} x "
+              f"scale, var {dv:.3g} x prior var; gradients mean {dg:.3g} x "
+              f"scale, var {dgv:.3g} x prior var; means <= "
+              f"{G_SERVE_MEAN_TOL}, variances <= {G_SERVE_VAR_TOL}")
+        times = {"predict_values": host_ms(
+            lambda: predict_multivariate(emu, queries)),
+            "predict_gradients": host_ms(
+            lambda: predict_multivariate_gradient(emu, queries))}
+        print(f"gradient times: predict {G_M} values {times['predict_values']:.3f}"
+              f" ms, {G_M} gradients {times['predict_gradients']:.3f} ms "
+              f"({smi})")
+
+        # the CLI: model, noise and gradients files -> a v3 snapshot ->
+        # interactive_mode over the pipe
+        model = str(pathlib.Path(tmp) / "model.txt")
+        write_model_file(model, X, Y)
+        nfile = str(pathlib.Path(tmp) / "noise.txt")
+        np.savetxt(nfile, noise)
+        gfile = str(pathlib.Path(tmp) / "grads.txt")
+        np.savetxt(gfile, np.transpose(G, (0, 2, 1)).reshape(-1, G_D))
+        cstate = str(pathlib.Path(tmp) / "cli_state.txt")
+        t0 = time.perf_counter()
+        rc, _, err = _run_cli(
+            ["estimate_thetas", model, cstate, "--dtype", "float32",
+             "--device", "cuda", "--regression_order", "1", "--restarts",
+             str(G_R), "--steps", str(G_STEPS), "--pca_variance", str(G_PCA),
+             "--seed", str(seed), "--noise_file", nfile, "--gradients_file",
+             gfile])
+        cli_wall = time.perf_counter() - t0
+        ok = rc == 0 and pathlib.Path(cstate).exists()
+        check(ok and pathlib.Path(cstate).read_text().startswith(
+                  "MADAIEMULATOR_TPU_SNAPSHOT 3\n"),
+              f"CLI estimate_thetas --noise_file --gradients_file --dtype "
+              f"float32 exit {rc} in {cli_wall:.2f} s (process start "
+              f"included), a version-3 snapshot; stderr: {err.strip()!r}")
+        if ok:
+            served_emu, pn, on = read_snapshot(cstate, device=dev,
+                                               dtype=torch.float32)
+            batches = [queries[:1], queries[1:64], queries]
+            header = ([f"{G_D}\n"] + [f"{x}\n" for x in pn]
+                      + [f"{2 * G_T}\n"] + [f"mean_{x}\n" for x in on]
+                      + [f"variance_{x}\n" for x in on])
+            served = _serve_over_pipe(cstate, batches, G_D, G_T, header)
+            want = np.concatenate(
+                [torch.cat(predict_multivariate(served_emu, b), dim=1)
+                 .cpu().double().numpy() for b in batches])
+            sm = np.abs(served[:, :G_T] - want[:, :G_T]).max() / scale
+            sv = np.abs(served[:, G_T:] - want[:, G_T:]).max() / pv
+            check(sm <= SERVER_TOL and sv <= SERVER_TOL,
+                  f"interactive_mode on the CLI's v3 snapshot vs in-process: "
+                  f"mean {sm:.3g} x scale, var {sv:.3g} x prior var <= "
+                  f"{SERVER_TOL}")
+    require(not failed, f"gradient: {len(failed)} checks failed: {failed}")
+    return launches, k3_grad
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1862,10 +2454,14 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels(dev, rng, np.random.default_rng([args.seed, 1]))
     phase_goldens(dev)
-    paths = {"serve_multivariate": phase_slice(dev, rng, smi),
-             "config4": phase_config4(dev, args.seed, smi)}
+    paths = {}
+    paths["serve_multivariate"], paths["serve_fast"] = phase_slice(dev, rng,
+                                                                   smi)
+    (paths["config4"], paths["config4_fast"],
+     paths["config4_tiers"]) = phase_config4(dev, args.seed, smi)
     paths["config3_fit"], k2_fit = phase_config3(dev, args.seed, smi)
     paths["config5"], c5 = phase_config5(dev, args.seed, smi)
+    paths["gradient"], k3_grad = phase_gradient(dev, args.seed, smi)
     for k in kernels:
         by_path = {p: c.get(k["name"], 0) for p, c in paths.items()}
         k["launches_by_path"] = by_path
@@ -1880,6 +2476,10 @@ def main() -> int:
             err, by_shape = c5[k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], err)
             k["config5"] = by_shape
+        if k["name"] == "panel_factor":
+            # the gradient path's lane batch (16, 512, 512)
+            k["max_abs_err"] = max(k["max_abs_err"], k3_grad["max_abs_err"])
+            k["gradient_batch"] = k3_grad
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,17 +9,22 @@ text or as .npz by the state file's extension).
         [--device=cuda|cpu] [--quiet] [--linesearch=zoom|backtracking]
         [--restart_chunk=C] [--alpha_grid=A1,A2,...] [--alpha_refine=K]
         [--cholesky_method=pallas|left|xla] [--gram_method=pallas|xla]
+        [--update_precision=auto|default|high|highest]
+        [--noise_file=PATH] [--gradients_file=PATH]
 
 trains the multivariate emulator (PCA + one GP per component, every
 component x restart lane in one lock-step LBFGS batch) and writes the
-snapshot (.npz when the state file ends in .npz, else text); the flags and
-defaults are the JAX CLI's, except that --cholesky_method and
---gram_method default to "pallas" (the Hopper kernels at float32). What is not yet ported exits 2 with one line on stderr:
---fit_method=iterative, --inducing, --noise_file, --gradients_file,
---update_precision=default|high, --cholesky_method=blocked, the JAX CLI's
-matrix-free and host-fit tuning flags (--rank, --probes, --lanczos_iters,
---cg_tol, --cg_max_iters, --logdet_method, --checkpoint_path, --vg_batch,
---inducing_opt_steps, --row_chunk), a MULTIFIDELITY model file.
+snapshot (.npz when the state file ends in .npz, else text; version 3 when
+trained on gradients); the flags and defaults are the JAX CLI's, except
+that --cholesky_method and --gram_method default to "pallas" (the Hopper
+kernels at float32). --noise_file holds N or N*t observation-noise
+variances; --gradients_file N*t*d output gradients w.r.t. the raw inputs
+(io/modelfile.read_gradients_file). What is not yet ported exits 2 with one
+line on stderr: --fit_method=iterative, --inducing,
+--cholesky_method=blocked, the JAX CLI's matrix-free and host-fit tuning
+flags (--rank, --probes, --lanczos_iters, --cg_tol, --cg_max_iters,
+--logdet_method, --checkpoint_path, --vg_batch, --inducing_opt_steps,
+--row_chunk), a MULTIFIDELITY model file.
 
     interactive_emulator_torch print_thetas <state_file>
         prints the fitted per-component hyperparameters (natural space).
@@ -27,13 +32,18 @@ matrix-free and host-fit tuning flags (--rank, --probes, --lanczos_iters,
     interactive_emulator_torch convert <in_state> <out_state>
         re-encodes a dense snapshot between text and .npz (by extension; the
         JAX CLI's output byte for byte in text, key for key in .npz).
-        Multi-fidelity, sparse and version-3 snapshots, in either encoding,
-        exit 2 with one line.
+        Multi-fidelity and sparse snapshots, in either encoding, exit 2 with
+        one line.
 
     interactive_emulator_torch interactive_mode <state_file>
-        [--dtype=float64|float32] [--device=cuda|cpu] [--serve_method=dense]
+        [--dtype=float64|float32] [--device=cuda|cpu]
+        [--serve_method=dense|fast]
 
-reads query points (nparams whitespace-separated floats) on stdin until EOF
+--serve_method=fast inverts each component's factors once at start-up so
+that every query batch is GEMMs only (no triangular solves); a
+gradient-enhanced (version 3) snapshot serves dense only and exits 2 there.
+interactive_mode reads query points (nparams whitespace-separated floats)
+on stdin until EOF
 and writes t means then t variances per query on stdout, "%.17g", flushing
 after each batch: the pipe protocol of the JAX CLI, byte for byte. Header:
 nparams, param names, 2*noutputs, then the mean_* / variance_* labels.
@@ -118,13 +128,24 @@ def _build_parser() -> argparse.ArgumentParser:
     est.add_argument(
         "--update_precision",
         choices=["auto", "default", "high", "highest"], default="highest",
-        help="'default' and 'high' are not yet ported; 'auto' resolves to "
-        "'highest'",
+        help="matmul tier of the large-N blocked Cholesky updates: "
+        "'highest' full FP32, 'high' 3xTF32, 'default' one TF32 pass; "
+        "'auto' picks from the condition bound at serve time",
     )
     est.add_argument("--linesearch", choices=["zoom", "backtracking"],
                      default="zoom")
-    est.add_argument("--noise_file", default=None, help="not yet ported")
-    est.add_argument("--gradients_file", default=None, help="not yet ported")
+    est.add_argument(
+        "--noise_file", default=None,
+        help="per-point observation-noise VARIANCES (whitespace floats): N "
+        "values (one per design point, every output) or N x t values",
+    )
+    est.add_argument(
+        "--gradients_file", default=None,
+        help="observed output gradients w.r.t. the raw inputs: N*t*d "
+        "floats, per point, per output, the d partials; trains a joint "
+        "value+gradient GP per component (power_exponential alpha=2 or "
+        "matern52[_ard]) and writes a version-3 snapshot",
+    )
     est.add_argument("--inducing", type=int, default=0, metavar="M",
                      help="not yet ported")
 
@@ -132,7 +153,8 @@ def _build_parser() -> argparse.ArgumentParser:
     im.add_argument("state_file")
     im.add_argument("--dtype", choices=["float64", "float32"], default="float64")
     im.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    im.add_argument("--serve_method", choices=["dense"], default="dense")
+    im.add_argument("--serve_method", choices=["dense", "fast"],
+                    default="dense")
 
     pt = sub.add_parser("print_thetas", help="print fitted hyperparameters")
     pt.add_argument("state_file")
@@ -155,15 +177,9 @@ def _unported_flag(args) -> Optional[str]:
         return "--fit_method=iterative is not yet ported"
     if args.inducing:
         return "--inducing (sparse SGPR) is not yet ported"
-    if args.noise_file:
-        return "--noise_file is not yet ported"
-    if args.gradients_file:
-        return "--gradients_file is not yet ported"
     for name in _UNPORTED_TUNING:
         if getattr(args, name) is not None:
             return f"--{name} is not yet ported"
-    if args.update_precision in ("default", "high"):
-        return f"--update_precision={args.update_precision} is not yet ported"
     if args.cholesky_method == "blocked":
         return "--cholesky_method=blocked is not ported; use pallas, left or xla"
     return None
@@ -174,6 +190,7 @@ def cmd_estimate_thetas(args) -> int:
 
     from madaiemulator_tpu_torch.io.modelfile import (
         is_multifidelity_model_file,
+        read_gradients_file,
         read_model_file,
     )
     from madaiemulator_tpu_torch.io.snapshot import write_snapshot_auto
@@ -209,6 +226,25 @@ def cmd_estimate_thetas(args) -> int:
         return _error(f"{args.model_file}: {e}")
     dtype = torch.float64 if args.dtype == "float64" else torch.float32
     dev = torch.device(args.device)
+    noise = gradients = None
+    if args.noise_file:
+        raw = np.loadtxt(args.noise_file, dtype=np.float64)
+        n, t = mf.npoints, mf.noutputs
+        if raw.size not in (n, n * t):
+            return _error(f"--noise_file has {raw.size} values; expected "
+                          f"N={n} or N*t={n * t}")
+        if float(np.min(raw)) < 0:
+            return _error("--noise_file variances must be >= 0")
+        noise = torch.tensor(raw.reshape(n) if raw.size == n
+                             else raw.reshape(n, t), dtype=dtype, device=dev)
+    if args.gradients_file:
+        try:
+            gradients = torch.tensor(
+                read_gradients_file(args.gradients_file, mf.npoints,
+                                    mf.nparams, mf.noutputs),
+                dtype=dtype, device=dev)
+        except ValueError as e:
+            return _error(str(e))
     try:
         cfg = GPConfig(
             nparams=mf.nparams,
@@ -230,8 +266,11 @@ def cmd_estimate_thetas(args) -> int:
             restart_chunk=args.restart_chunk,
             alpha_grid=alpha_grid,
             alpha_refine=args.alpha_refine,
+            noise=noise,
+            gradients=gradients,
         )
     except ValueError as e:
+        # e.g. --gradients_file with a once-differentiable kernel
         return _error(str(e))
     if not args.quiet:
         lls = emu.restart_log_likelihoods.detach().cpu().double().numpy()
@@ -301,7 +340,11 @@ def cmd_interactive_mode(args) -> int:
     import torch
 
     from madaiemulator_tpu_torch.io.snapshot import read_snapshot_auto
-    from madaiemulator_tpu_torch.models.multivariate import predict_multivariate
+    from madaiemulator_tpu_torch.models.multivariate import (
+        precompute_fast_multivariate,
+        predict_multivariate,
+        predict_multivariate_fast,
+    )
 
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: CUDA device not available", file=sys.stderr)
@@ -314,6 +357,17 @@ def cmd_interactive_mode(args) -> int:
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    predict = predict_multivariate
+    if args.serve_method == "fast":
+        try:
+            fast_states = precompute_fast_multivariate(emu)
+        except ValueError as e:
+            # gradient-enhanced snapshots have no GEMM-only path
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+
+        def predict(e, q):
+            return predict_multivariate_fast(e, fast_states, q)
     d = len(param_names)
     out = sys.stdout
     # header: expected inputs, then produced outputs
@@ -346,7 +400,7 @@ def cmd_interactive_mode(args) -> int:
         """(m, d) -> (m, 2t) [means | variances], MAX_BATCH points a call."""
         rows = []
         for i in range(0, pts.shape[0], MAX_BATCH):
-            mean, var = predict_multivariate(emu, pts[i:i + MAX_BATCH])
+            mean, var = predict(emu, pts[i:i + MAX_BATCH])
             rows.append(torch.cat([mean, var], dim=1).cpu().numpy())
         return np.concatenate(rows, axis=0)
 

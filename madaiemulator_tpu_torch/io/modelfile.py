@@ -125,3 +125,24 @@ def is_multifidelity_model_file(path: str) -> bool:
         for tok in _tokens(f):
             return tok == MAGIC_MF_MODEL
     return False
+
+
+def read_gradients_file(
+    path: str, npoints: int, nparams: int, noutputs: int
+) -> np.ndarray:
+    """Observed output gradients for gradient-enhanced training
+    (`estimate_thetas --gradients_file`): whitespace-separated floats,
+    npoints * noutputs * nparams of them -- per design point (model-file
+    row order), per output (model-file output order), the nparams partials
+    d f_t / d x_a w.r.t. the RAW inputs ('#' comments allowed). Returns
+    (N, d, t), the layout fit_multivariate(gradients=...) takes."""
+    with open(path, "r") as f:
+        vals = [float(t) for t in _tokens(f)]
+    want = npoints * noutputs * nparams
+    if len(vals) != want:
+        raise ValueError(
+            f"gradients file has {len(vals)} values; expected "
+            f"N*t*d = {npoints}*{noutputs}*{nparams} = {want}"
+        )
+    arr = np.asarray(vals, np.float64).reshape(npoints, noutputs, nparams)
+    return np.transpose(arr, (0, 2, 1))  # (N, d, t)

@@ -1,4 +1,4 @@
-"""Trained-emulator snapshot, dense grammar versions 1 and 2, as text and as
+"""Trained-emulator snapshot, dense grammar versions 1-3, as text and as
 numpy .npz (port of madaiemulator_tpu/io/snapshot.py: read_snapshot /
 write_snapshot, read_snapshot_npz / write_snapshot_npz and the extension
 routing of read_snapshot_auto / write_snapshot_auto).
@@ -14,13 +14,18 @@ other. The text grammar:
     d param names, t output names, design scaling (mins; ranges),
     PCA (ymean; ystd; eigenvalues; U t x r), scaled design X (N x d),
     PC scores Z (N x r), thetas (r x ntheta) [amp nugget ls...],
-    and in version 2 the PC-space noise variances (N x r).
+    and in version 2 the PC-space noise variances (N x r). Version 3 (a
+    gradient-enhanced emulator) adds the header flags has_noise,
+    has_gradients and has_gradient_noise after pca_standardize, and after
+    the optional noise block the PC-space gradients ((N*d) x r,
+    point-major) and, when flagged, their noise variances in the same
+    layout.
 
 '#' starts a comment that runs to the end of its line; floats are written
 "%.17g" so float64 round-trips exactly. The .npz holds the same payload
-as arrays under the JAX writer's keys (`write_snapshot_npz`). Version 3
-(gradients) and the multi-fidelity and sparse grammars, in either encoding,
-are not yet ported and raise ValueError.
+as arrays under the JAX writer's keys (`write_snapshot_npz`; version 3 adds
+dZ_pc and dZ_noise_pc, each (N, d, r)). The multi-fidelity and sparse
+grammars, in either encoding, are not yet ported and raise ValueError.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from madaiemulator_tpu_torch.utils.config import COVARIANCE_CLI_NAMES, GPConfig
 MAGIC = "MADAIEMULATOR_TPU_SNAPSHOT"
 VERSION = 1
 VERSION_NOISE = 2  # version 1 + a trailing (N x r) PC-space noise block
+VERSION_GRADIENTS = 3  # + header flags and the PC-space gradient blocks
 _OTHER_MAGICS = {
     "MADAIEMULATOR_TPU_SNAPSHOT_MF": "multi-fidelity",
     "MADAIEMULATOR_TPU_SNAPSHOT_SGPR": "sparse (SGPR)",
@@ -60,15 +66,13 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 
 def _version(emu: MultivariateEmulator) -> int:
+    if emu.dZ is not None:
+        return VERSION_GRADIENTS
     return VERSION if emu.noise is None else VERSION_NOISE
 
 
 def _check_version(version: int) -> None:
-    if version == 3:
-        raise ValueError(
-            "snapshot version 3 (gradient-enhanced) is not yet ported"
-        )
-    if version not in (VERSION, VERSION_NOISE):
+    if version not in (VERSION, VERSION_NOISE, VERSION_GRADIENTS):
         raise ValueError(f"unsupported snapshot version {version}")
 
 
@@ -99,12 +103,17 @@ def write_snapshot(
         axis=1,
     )  # (r, ntheta), natural space, reference layout
     w = dest.write
-    w(f"{MAGIC} {_version(emu)}\n")
+    version = _version(emu)
+    w(f"{MAGIC} {version}\n")
     w(f"covariance {cfg.covariance.value}\n")
     w(f"power_exp_alpha {cfg.power_exp_alpha:.17g}\n")
     w(f"regression_order {cfg.regression_order}\n")
     w(f"predict_variance_includes_nugget {int(cfg.predict_variance_includes_nugget)}\n")
     w(f"pca_standardize {int(pca_standardize)}\n")
+    if version == VERSION_GRADIENTS:
+        w(f"has_noise {int(emu.noise is not None)}\n")
+        w(f"has_gradients {int(emu.dZ is not None)}\n")
+        w(f"has_gradient_noise {int(emu.dZ_noise is not None)}\n")
     w(f"nparams {d}\nnoutputs {t}\nnpoints {n}\nncomponents {r}\n")
     for s in param_names + output_names:
         w(f"{s}\n")
@@ -125,6 +134,12 @@ def write_snapshot(
     if emu.noise is not None:
         w("# per-point PC-space observation-noise variances (n x r)\n")
         w(_fmt_mat(_np(emu.noise)) + "\n")
+    if emu.dZ is not None:
+        w("# PC-space gradient observations ((n*d) x r, point-major)\n")
+        w(_fmt_mat(_np(emu.dZ).reshape(n * d, r)) + "\n")
+    if emu.dZ_noise is not None:
+        w("# PC-space gradient-noise variances ((n*d) x r, point-major)\n")
+        w(_fmt_mat(_np(emu.dZ_noise).reshape(n * d, r)) + "\n")
 
 
 class _Tokens:
@@ -189,6 +204,13 @@ def read_snapshot(
     order = int(toks.expect("regression_order"))
     pred_nug = bool(int(toks.expect("predict_variance_includes_nugget")))
     toks.expect("pca_standardize")  # metadata: ystd is applied directly
+    if version == VERSION_GRADIENTS:
+        has_noise, has_grad, has_grad_noise = (
+            bool(int(toks.expect(k))) for k in
+            ("has_noise", "has_gradients", "has_gradient_noise"))
+    else:
+        has_noise, has_grad, has_grad_noise = (
+            version == VERSION_NOISE, False, False)
     d = int(toks.expect("nparams"))
     t = int(toks.expect("noutputs"))
     n = int(toks.expect("npoints"))
@@ -209,8 +231,12 @@ def read_snapshot(
     arrays["log_amp"] = np.log(thetas[:, 0])
     arrays["log_nugget"] = np.log(thetas[:, 1])
     arrays["log_ls"] = np.log(thetas[:, 2:])
-    if version == VERSION_NOISE:
+    if has_noise:
         arrays["noise"] = toks.mat(n, r)
+    if has_grad:
+        arrays["dZ"] = toks.mat(n * d, r).reshape(n, d, r)
+    if has_grad_noise:
+        arrays["dZ_noise"] = toks.mat(n * d, r).reshape(n, d, r)
     cfg = GPConfig(
         nparams=d,
         covariance=cov,
@@ -235,7 +261,10 @@ def write_snapshot_npz(
     d = emu.X.shape[1]
     t = emu.n_outputs
     cfg = emu.config
-    extra = {} if emu.noise is None else {"noise_pc": _np(emu.noise)}
+    extra = {key: _np(a) for key, a in (("noise_pc", emu.noise),
+                                        ("dZ_pc", emu.dZ),
+                                        ("dZ_noise_pc", emu.dZ_noise))
+             if a is not None}
     np.savez_compressed(
         dest,
         magic=np.array([MAGIC]),
@@ -294,8 +323,10 @@ def read_snapshot_npz(
         arrays = {k: z[k] for k in ("mins", "ranges", "ymean", "ystd",
                                     "eigenvalues", "U", "X", "Z", "log_amp",
                                     "log_nugget", "log_ls")}
-        if "noise_pc" in z:
-            arrays["noise"] = z["noise_pc"]
+        for key, name in (("noise_pc", "noise"), ("dZ_pc", "dZ"),
+                          ("dZ_noise_pc", "dZ_noise")):
+            if key in z:
+                arrays[name] = z[key]
         names = (list(map(str, z["param_names"])),
                  list(map(str, z["output_names"])))
     # the shared tail of both readers (the JAX package's
@@ -324,6 +355,6 @@ def read_snapshot_auto(
 ) -> Tuple[MultivariateEmulator, List[str], List[str]]:
     """'.npz' -> `read_snapshot_npz`, anything else -> `read_snapshot`.
     Both read the snapshot's own magic and reject the grammars that are not
-    yet ported (multi-fidelity, sparse, version 3) with ValueError."""
+    yet ported (multi-fidelity, sparse) with ValueError."""
     reader = read_snapshot_npz if source.endswith(".npz") else read_snapshot
     return reader(source, device, dtype=dtype, build_states=build_states)

@@ -129,12 +129,13 @@ def _unflatten(u: torch.Tensor) -> GPParams:
     return GPParams(log_amp=u[:, 0], log_nugget=u[:, 1], log_ls=u[:, 2:])
 
 
-def _lane_objective(X, y, noise, config: GPConfig, lo, hi, stats: dict):
-    """Batched objective of (B, P) iterates, lane b fitting targets y[b] on
-    design X[b] (X (N, d) and y (N,) may be shared by every lane):
-    (value_and_grad, value) closures over -log_marginal_likelihood,
-    counting their calls in `stats`."""
-    data = GPData(X=X, y=y, noise=noise)
+def _lane_objective(X, y, noise, config: GPConfig, lo, hi, stats: dict,
+                    dY=None, dY_noise=None):
+    """Batched objective of (B, P) iterates, lane b fitting targets y[b]
+    (gradients dY[b], if given) on design X[b] (X (N, d) and y (N,) may be
+    shared by every lane): (value_and_grad, value) closures over
+    -log_marginal_likelihood, counting their calls in `stats`."""
+    data = GPData(X=X, y=y, noise=noise, dY=dY, dY_noise=dY_noise)
 
     def negll(u):
         return -log_marginal_likelihood(_u_to_params(_unflatten(u), lo, hi),
@@ -169,22 +170,26 @@ def fit_one_start(
     max_steps: int,
     noise: torch.Tensor | None = None,
     stats: dict | None = None,
+    dY: torch.Tensor | None = None,
+    dY_noise: torch.Tensor | None = None,
 ) -> Tuple[GPParams, torch.Tensor]:
     """LBFGS trajectories from a batch of unconstrained starts u0 (leading
     lane axis B), all in lock step (`models.lbfgs.run_lbfgs`, optax's
     algorithm with `config.linesearch`). X is (N, d) shared by every lane,
     or (B, N, d), one design per lane (an ensemble); y is (N,) or (B, N);
-    noise likewise. The JAX function runs one start and is vmapped by its
+    noise likewise, and the gradient blocks dY, dY_noise (N, d) or
+    (B, N, d). The JAX function runs one start and is vmapped by its
     callers (`in_axes=(0, 0, 0)` for an ensemble); this one takes the
     batch.
     Returns (best_u, best_neg_loglik (B,)) in u0's dtype. The JAX
-    function's h_extra and gradient blocks are not yet ported.
+    function's h_extra is not yet ported.
     `stats`, when given, accumulates the objective evaluation counts.
     """
     dtype = y.dtype
     lo, hi = _bounds_arrays(config, dtype, X.device)
     stats = _new_stats() if stats is None else stats
-    vg, v = _lane_objective(X, y, noise, config, lo, hi, stats)
+    vg, v = _lane_objective(X, y, noise, config, lo, hi, stats, dY=dY,
+                            dY_noise=dY_noise)
     res = lbfgs.run_lbfgs(
         _flatten_t(u0).to(device=X.device, dtype=dtype), vg, v, max_steps,
         segments=(1, 1, config.num_length_scales),
@@ -512,9 +517,12 @@ def _fit_lanes(
     group_chunk: int | None = None,
     restart_chunk: int | None = None,
     stats: dict | None = None,
+    dY: torch.Tensor | None = None,
+    dY_noise: torch.Tensor | None = None,
 ) -> FitResult:
     """L-BFGS over G x R lanes from unconstrained starts u0 (G, R, P): lane
-    (g, r) fits targets Y[g] (noise[g]) on design X, the (N, d) one shared
+    (g, r) fits targets Y[g] (noise[g], gradients dY[g] and their variances
+    dY_noise[g], each optional) on design X, the (N, d) one shared
     by every lane or X[g] of (G, N, d). The lanes run as one lock-step
     `fit_one_start` batch, or in sequential blocks of group_chunk groups x
     restart_chunk restarts (the same result, less memory). The argmax over
@@ -539,7 +547,10 @@ def _fit_lanes(
                 X if X.dim() == 2 else _repeat_lanes(X[g], k),
                 _repeat_lanes(Y[g], k), config, steps,
                 noise=None if noise is None else _repeat_lanes(noise[g], k),
-                stats=stats)
+                stats=stats,
+                dY=None if dY is None else _repeat_lanes(dY[g], k),
+                dY_noise=(None if dY_noise is None
+                          else _repeat_lanes(dY_noise[g], k)))
             best_u[g, r] = _flatten_t(bu).reshape(ub.shape)
             best_negll[g, r] = bv.reshape(ub.shape[:2])
     lo, hi = _bounds_arrays(config, dtype, dev)
@@ -567,9 +578,12 @@ def _fit_components(
     max_steps: int | None = None,
     restart_chunk: int | None = None,
     noise: torch.Tensor | None = None,
+    dY: torch.Tensor | None = None,
+    dY_noise: torch.Tensor | None = None,
 ) -> FitResult:
     """`fit_gp` for r GPs on one design at once: Y (r, N) holds each
-    component's targets (noise, if given, (r, N) its noise variances). The
+    component's targets (noise, if given, (r, N) its noise variances; dY
+    and dY_noise, if given, (r, N, d) its gradient blocks). The
     (r x R) lanes run as one lock-step batch, or in groups of restart_chunk
     restarts of every component (`_fit_lanes`)."""
     R = config.n_restarts if n_restarts is None else n_restarts
@@ -594,7 +608,9 @@ def _fit_components(
     # moment-matched fallbacks (amp = var(y), short length scales, real
     # nuggets) that factor at working precision.
     _, value = _lane_objective(X, _repeat_lanes(Y, R),
-                               _repeat_lanes(noise, R), config, lo, hi, stats)
+                               _repeat_lanes(noise, R), config, lo, hi, stats,
+                               dY=_repeat_lanes(dY, R),
+                               dY_noise=_repeat_lanes(dY_noise, R))
     v0 = value(u0.reshape(r * R, P)).reshape(r, R)
     amp_fb = torch.clamp(Y.var(dim=-1, unbiased=False),
                          config.amp_bounds[0] * 10, config.amp_bounds[1] / 10)
@@ -616,7 +632,8 @@ def _fit_components(
         raise ValueError(
             f"n_restarts={R} not divisible by restart_chunk={restart_chunk}")
     res = _fit_lanes(u0, X, Y, config, steps, noise=noise,
-                     restart_chunk=restart_chunk, stats=stats)
+                     restart_chunk=restart_chunk, stats=stats, dY=dY,
+                     dY_noise=dY_noise)
     stats["n_steps"] = steps
     stats["fit_wall_s"] = time.perf_counter() - t0
     return res
@@ -643,7 +660,9 @@ def fit_gp(
     res = _fit_components(
         generator, data.X, data.y[None], config, n_restarts=n_restarts,
         max_steps=max_steps, restart_chunk=restart_chunk,
-        noise=None if data.noise is None else data.noise[None])
+        noise=None if data.noise is None else data.noise[None],
+        dY=None if data.dY is None else data.dY[None],
+        dY_noise=None if data.dY_noise is None else data.dY_noise[None])
     return FitResult(
         params=GPParams(*(a[0] for a in res.params)),
         log_likelihood=res.log_likelihood[0],

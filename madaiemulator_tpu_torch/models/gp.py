@@ -25,6 +25,7 @@ import logging
 import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from madaiemulator_tpu_torch.ops import kernels, linalg
@@ -36,10 +37,16 @@ logger = logging.getLogger("madaiemulator_tpu_torch")
 
 class GPData(NamedTuple):
     """Training data: X (N, d) scaled design (or (*B, N, d), one per batch
-    member), y (*B, N) targets, and optional
-    per-point observation-noise variances noise (*B, N) added to the Gram
-    diagonal. h_extra / dY / dY_noise keep the JAX field layout; they are
-    not yet ported and are rejected."""
+    member), y (*B, N) targets, and optional per-point observation-noise
+    variances noise (*B, N) added to the Gram diagonal.
+
+    dY (*B, N, d), optional: observed gradients df/dx_a at X in the scaled
+    design coordinates; the GP then trains on the joint (value, gradient)
+    vector, rows in (point, dim) row-major order after the N values
+    (`kernels.gram_joint`), and needs a twice-differentiable kernel
+    (power_exponential alpha=2, matern52[_ard]). dY_noise (*B, N, d): known
+    gradient-noise variances. h_extra keeps the JAX field layout; it is not
+    yet ported and is rejected."""
 
     X: torch.Tensor
     y: torch.Tensor
@@ -63,10 +70,6 @@ class GPPosteriorState(NamedTuple):
 def _reject_unported(data: GPData) -> None:
     if data.h_extra is not None:
         raise NotImplementedError("GPData.h_extra is not yet ported")
-    if data.dY is not None or data.dY_noise is not None:
-        raise NotImplementedError(
-            "gradient observations (GPData.dY) are not yet ported"
-        )
 
 
 def regression_basis(X: torch.Tensor, order: int) -> torch.Tensor:
@@ -76,24 +79,61 @@ def regression_basis(X: torch.Tensor, order: int) -> torch.Tensor:
     return torch.cat([ones] + [X ** q for q in range(1, order + 1)], dim=-1)
 
 
+def regression_basis_grad(X: torch.Tensor, order: int) -> torch.Tensor:
+    """dH/dx rows for gradient observations: (*B, N*d, p), row i*d + a the
+    gradient of every basis column wrt x_a at X[i]. The basis has no cross
+    terms, so each power-q block is a diagonal within its d columns:
+    d/dx_a (x_b)^q = q x_a^(q-1) [a == b]."""
+    n, d = X.shape[-2:]
+    G = torch.zeros(X.shape[:-2] + (n, d, 1 + order * d), dtype=X.dtype,
+                    device=X.device)
+    dims = torch.arange(d, device=X.device)
+    for q in range(1, order + 1):
+        G[..., dims, 1 + (q - 1) * d + dims] = q * X ** (q - 1)
+    return G.reshape(X.shape[:-2] + (n * d, 1 + order * d))
+
+
 def training_basis(data: GPData, config: GPConfig) -> torch.Tensor:
+    """H for training; with gradient observations the derivative rows
+    dh/dx follow the value rows, in the joint layout."""
     _reject_unported(data)
-    return regression_basis(data.X, config.regression_order)
+    H = regression_basis(data.X, config.regression_order)
+    if data.dY is not None:
+        H = torch.cat(
+            [H, regression_basis_grad(data.X, config.regression_order)],
+            dim=-2)
+    return H
 
 
 def training_targets(data: GPData) -> torch.Tensor:
+    """y, extended by the row-major flattened gradients when dY is given."""
     _reject_unported(data)
-    return data.y
+    if data.dY is None:
+        return data.y
+    dY = data.dY.reshape(data.dY.shape[:-2] + (-1,))
+    batch = np.broadcast_shapes(data.y.shape[:-1], dY.shape[:-1])
+    return torch.cat([data.y.expand(batch + data.y.shape[-1:]),
+                      dY.expand(batch + dY.shape[-1:])], dim=-1)
 
 
 def training_gram(data: GPData, params: GPParams, config: GPConfig) -> torch.Tensor:
-    """C(theta) over the training rows; known noise variances land on the
-    diagonal."""
+    """C(theta) over the training rows: the Gram, or the joint value +
+    gradient Gram when data carries dY; known noise variances land on the
+    diagonal. The closed-form LML backward is the VJP of this function."""
     _reject_unported(data)
+    if data.dY is not None:
+        return kernels.gram_joint(data.X, params, config, noise=data.noise,
+                                  grad_noise=data.dY_noise)
     C = kernels.gram_matrix(data.X, params, config)
     if data.noise is not None:
         C = C + torch.diag_embed(data.noise.to(C.dtype))
     return C
+
+
+def _train_rows(data: GPData) -> int:
+    """Training rows: N, or N(1+d) with gradient observations."""
+    n, d = data.X.shape[-2:]
+    return n * (1 + d) if data.dY is not None else n
 
 
 def query_basis(
@@ -111,7 +151,10 @@ def _cholesky(C: torch.Tensor, config: GPConfig) -> torch.Tensor:
     with kernel K3 on every diagonal panel (diag="pallas") where the JAX
     package takes diag="xla". Both compute the same factor; the port's
     "pallas" spelling means "the Hopper kernels". "left" keeps the JAX
-    route exactly (diag="xla"); float64 always takes the library panels."""
+    route exactly (diag="xla"); float64 always takes the library panels.
+    "auto" is resolved from concrete hyperparameters only by
+    `precompute_predictor_safe` (`resolve_update_precision`); here, as in
+    the JAX package's traced `_factor`, it means "highest"."""
     n = C.shape[-1]
     method = config.cholesky_method
     upd = config.cholesky_update_precision
@@ -204,14 +247,13 @@ class _LML(torch.autograd.Function):
     def backward(ctx, g):
         st, data, config = ctx.st, ctx.data, ctx.config
         L = st.L
-        n = L.shape[-1]
-        if L.dtype == torch.float64:
-            eye = torch.eye(n, dtype=L.dtype, device=L.device)
-            Linv = torch.linalg.solve_triangular(L, eye.expand_as(L),
-                                                 upper=False)
-        else:
-            Linv = linalg.tri_inv_block(L)
-        Cinv = Linv.mT @ Linv
+        # the two O(N^3) terms (Linv, Cinv = Linv^T Linv) follow the
+        # factorization's tier as in the JAX package (gp.py:345-356): 3xTF32
+        # at "high", full FP32 at every other tier
+        tier = ("high" if config.cholesky_update_precision == "high"
+                else "highest")
+        Linv = _tri_inverse(L, tier)
+        Cinv = linalg.matmul_tier(Linv.mT, Linv, tier)
         Mbar = 0.5 * st.alpha[..., :, None] * st.alpha[..., None, :]
         Mbar = Mbar - 0.5 * Cinv
         del Linv, Cinv
@@ -219,7 +261,7 @@ class _LML(torch.autograd.Function):
             # +0.5 W A^-1 W^T,  W = C^-1 H = L^-T (L^-1 H)
             W = linalg.solve_upper_t(L, st.Linv_H)
             Z = linalg.cho_solve(st.LA, W.mT)  # (*B, p, N) = A^-1 W^T
-            Mbar = Mbar + 0.5 * (W @ Z)
+            Mbar = Mbar + 0.5 * linalg.matmul_tier(W, Z, tier)
         Mbar = Mbar * g.to(L.dtype)[..., None, None]
         saved = ctx.saved_tensors
         needs = ctx.needs_input_grad[:3]
@@ -306,18 +348,136 @@ def precompute_predictor(
     return st
 
 
+def resolve_update_precision(
+    params: GPParams, n: int, config: GPConfig
+) -> GPConfig:
+    """Resolve cholesky_update_precision="auto" from concrete
+    hyperparameters (host-level: reads the params). C = amp R +
+    (nugget + jitter_frac amp) I has the condition bound
+    kappa <= 1 + n amp / nugget_eff, and `linalg.choose_update_precision`
+    maps it to a tier. Over a batch (components, restarts) the largest
+    bound decides, since one factorization call runs one tier."""
+    if config.cholesky_update_precision != "auto":
+        return config
+    amp = torch.exp(params.log_amp).detach().double().cpu()
+    nugget = torch.exp(params.log_nugget).detach().double().cpu()
+    jitter_frac = kernels.effective_jitter_frac(n, params.log_amp.dtype,
+                                                config)
+    kappa = max(linalg.gp_kappa_bound(n, a, g + jitter_frac * a)
+                for a, g in zip(amp.reshape(-1).tolist(),
+                                nugget.reshape(-1).tolist()))
+    return dataclasses.replace(
+        config,
+        cholesky_update_precision=linalg.choose_update_precision(kappa),
+    )
+
+
 def precompute_predictor_safe(
     params: GPParams, data: GPData, config: GPConfig
 ) -> GPPosteriorState:
     """Host-level serving precompute with the escalating-jitter retry, the
-    large-N serve entry point of the JAX package (gp.py:448-472).
+    large-N serve entry point of the JAX package (gp.py:448-472), which
+    resolves cholesky_update_precision="auto" from the concrete
+    hyperparameters first (`resolve_update_precision`).
 
     The port's `precompute_predictor` already runs its ladder on the host,
-    once, and merges the rungs per batch member, so this is that function
-    under the JAX package's name. cholesky_update_precision="auto" resolves
-    to "highest" (full FP32) until the precision tiers are ported.
+    once, and merges the rungs per batch member, so the rest is that
+    function under the JAX package's name.
     """
+    config = resolve_update_precision(params, _train_rows(data), config)
     return precompute_predictor(params, data, config)
+
+
+class FastPredictorState(NamedTuple):
+    """Serve-time state with explicit triangular inverses: every per-query
+    solve becomes a GEMM (JAX gp.py:475-491). Batched like the base state:
+    Linv (*B, N, N), LAinv (*B, p, p)."""
+
+    base: GPPosteriorState
+    Linv: torch.Tensor  # (*B, N, N) lower-triangular L^-1
+    LAinv: torch.Tensor  # (*B, p, p) lower-triangular LA^-1
+
+
+def _tri_inverse(T: torch.Tensor, tier: str = "highest") -> torch.Tensor:
+    """Explicit lower-triangular inverse: a triangular solve against the
+    identity at float64, `linalg.tri_inv_block` at a tier at float32."""
+    if T.dtype == torch.float64:
+        eye = torch.eye(T.shape[-1], dtype=T.dtype, device=T.device)
+        return torch.linalg.solve_triangular(T, eye.expand_as(T), upper=False)
+    return linalg.tri_inv_block(T, precision=tier)
+
+
+def fast_predictor_from_state(st: GPPosteriorState) -> FastPredictorState:
+    """The explicit triangular inverses of an existing factorization (no
+    refactorization), over its whole batch."""
+    return FastPredictorState(base=st, Linv=_tri_inverse(st.L),
+                              LAinv=_tri_inverse(st.LA))
+
+
+def precompute_fast_predictor(
+    params: GPParams, data: GPData, config: GPConfig
+) -> FastPredictorState:
+    """`precompute_predictor` plus the one-time N^3/3 inversion for
+    GEMM-only serving by `predict_fast`."""
+    return fast_predictor_from_state(
+        precompute_predictor(params, data, config))
+
+
+def _chunked(core, Xs: torch.Tensor, chunk, dim: int = -1):
+    """core(Xs) -> (mean, var) over sequential query chunks of Xs, the
+    outputs joined on their query axis `dim`."""
+    m = Xs.shape[-2]
+    if chunk is None or m <= chunk:
+        return core(Xs)
+    parts = [core(Xs[..., i:i + chunk, :]) for i in range(0, m, chunk)]
+    return tuple(torch.cat([p[k] for p in parts], dim=dim) for k in (0, 1))
+
+
+def predict_fast(
+    fp: FastPredictorState,
+    params: GPParams,
+    data: GPData,
+    Xs: torch.Tensor,
+    config: GPConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GEMM-only posterior mean and variance (see FastPredictorState), in
+    query chunks as `predict_from_precomputed` takes them."""
+    if data.h_extra is not None:
+        raise ValueError(
+            "predict_fast does not support GPData.h_extra; use "
+            "predict_from_precomputed(..., hs_extra=...) "
+            "(models/multifidelity.py serves through it)"
+        )
+    if data.dY is not None:
+        raise ValueError(
+            "predict_fast does not support gradient-enhanced data; use "
+            "predict_from_precomputed (the joint cross build is the cost, "
+            "not the solves)"
+        )
+    chunk = _auto_query_chunk(_train_rows(data), Xs.shape[-2],
+                              config.predict_query_chunk)
+    return _chunked(
+        lambda q: _predict_fast_core(fp, params, data, q, config), Xs, chunk)
+
+
+def _predict_fast_core(
+    fp: FastPredictorState,
+    params: GPParams,
+    data: GPData,
+    Xs: torch.Tensor,
+    config: GPConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    st = fp.base
+    Ks = kernels.cross_covariance(data.X, Xs, params, config)  # (*B, N, m)
+    Hs = regression_basis(Xs, config.regression_order)  # (m, p)
+    mean = (Hs @ st.beta[..., None])[..., 0] + (
+        Ks.mT @ st.alpha[..., None])[..., 0]
+    V = fp.Linv @ Ks  # (*B, N, m)
+    var = kernels.kdiag(Xs, params, config) - (V * V).sum(-2)
+    G = Hs.mT - st.Linv_H.mT @ V  # (*B, p, m)
+    W = fp.LAinv @ G
+    var = var + (W * W).sum(-2)
+    return mean, torch.clamp(var, min=0.0)
 
 
 def gp_posterior(
@@ -358,16 +518,10 @@ def predict_from_precomputed(
     auto policy) asks for them."""
     if hs_extra is not None:
         raise NotImplementedError("hs_extra is not yet ported")
-    m = Xs.shape[-2]
-    chunk = _auto_query_chunk(data.X.shape[-2], m, config.predict_query_chunk)
-    if chunk is None or m <= chunk:
-        return _predict_core(state, params, data, Xs, config)
-    parts = [
-        _predict_core(state, params, data, Xs[..., i:i + chunk, :], config)
-        for i in range(0, m, chunk)
-    ]
-    return (torch.cat([p[0] for p in parts], dim=-1),
-            torch.cat([p[1] for p in parts], dim=-1))
+    chunk = _auto_query_chunk(_train_rows(data), Xs.shape[-2],
+                              config.predict_query_chunk)
+    return _chunked(
+        lambda q: _predict_core(state, params, data, q, config), Xs, chunk)
 
 
 def _predict_core(
@@ -378,7 +532,11 @@ def _predict_core(
     config: GPConfig,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     _reject_unported(data)
-    Ks = kernels.cross_covariance(data.X, Xs, params, config)  # (*B, N, m)
+    if data.dY is not None:
+        # joint rows (values, then gradients) against the query values
+        Ks = kernels.joint_cross(data.X, Xs, params, config, grad_rows=True)
+    else:
+        Ks = kernels.cross_covariance(data.X, Xs, params, config)  # (*B, N, m)
     Hs = query_basis(Xs, config)  # (m, p)
     mean = (Hs @ state.beta[..., None])[..., 0] + (
         Ks.mT @ state.alpha[..., None]
@@ -390,3 +548,64 @@ def _predict_core(
     W = linalg.solve_lower(state.LA, G)
     var = var + (W * W).sum(-2)
     return mean, torch.clamp(var, min=0.0)
+
+
+def predict_gradient(
+    state: GPPosteriorState,
+    params: GPParams,
+    data: GPData,
+    Xs: torch.Tensor,
+    config: GPConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Posterior mean and marginal variance of the partial derivatives
+    df/dx_b at the queries Xs (m, d): ((*B, m, d), (*B, m, d)), for
+    values-only and gradient-enhanced training data alike (JAX
+    gp.py:707-755). Needs a twice-differentiable kernel. With
+    config.predict_variance_includes_nugget the gradient-units nugget
+    (nugget c_g / ell_b^2) is included. Queries run in chunks of the value
+    path's size divided by d (each query is d solve columns) unless
+    config.predict_query_chunk is set."""
+    if data.h_extra is not None:
+        raise ValueError(
+            "predict_gradient does not support h_extra (the extra "
+            "regression columns have no query-side derivative)"
+        )
+    d = Xs.shape[-1]
+    chunk = _auto_query_chunk(_train_rows(data) * d, Xs.shape[-2],
+                              config.predict_query_chunk)
+    if config.predict_query_chunk is None and chunk is not None:
+        chunk = max(1, chunk // d)
+    return _chunked(
+        lambda q: _predict_gradient_core(state, params, data, q, config),
+        Xs, chunk, dim=-2)
+
+
+def _predict_gradient_core(
+    state: GPPosteriorState,
+    params: GPParams,
+    data: GPData,
+    Xs: torch.Tensor,
+    config: GPConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    m, d = Xs.shape[-2:]
+    # training rows (values [+ gradients]) against query GRADIENT columns
+    Ks = kernels.joint_cross(data.X, Xs, params, config,
+                             grad_rows=data.dY is not None, grad_cols=True,
+                             value_cols=False)  # (*B, rows, m*d)
+    Hs = regression_basis_grad(Xs, config.regression_order)  # (m*d, p)
+    mean = (Hs @ state.beta[..., None])[..., 0] + (
+        Ks.mT @ state.alpha[..., None])[..., 0]
+    V = linalg.solve_lower(state.L, Ks)  # (*B, rows, m*d)
+    amp = torch.exp(params.log_amp)
+    base = amp + (torch.exp(params.log_nugget)
+                  if config.predict_variance_includes_nugget else 0.0)
+    ell = kernels._ell_vec(params, config, d)  # (*B, d)
+    cg = kernels.grad_prior_scale(config)
+    kss = base[..., None] * cg / (ell * ell)  # (*B, d)
+    kss = kss.repeat((1,) * (kss.ndim - 1) + (m,))  # (*B, m*d) prior vars
+    var = kss - (V * V).sum(-2)
+    G = Hs.mT - state.Linv_H.mT @ V  # (*B, p, m*d)
+    W = linalg.solve_lower(state.LA, G)
+    var = torch.clamp(var + (W * W).sum(-2), min=0.0)
+    shape = var.shape[:-1] + (m, d)
+    return mean.reshape(shape), var.reshape(shape)

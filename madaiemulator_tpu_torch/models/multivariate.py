@@ -23,10 +23,14 @@ import torch
 
 from madaiemulator_tpu_torch.models import fit as _fit
 from madaiemulator_tpu_torch.models.gp import (
+    FastPredictorState,
     GPData,
     GPPosteriorState,
+    fast_predictor_from_state,
     precompute_predictor,
+    predict_fast,
     predict_from_precomputed,
+    predict_gradient,
 )
 from madaiemulator_tpu_torch.ops.kernels import GPParams
 from madaiemulator_tpu_torch.utils.config import CovarianceFamily, GPConfig
@@ -52,10 +56,13 @@ class MultivariateEmulator(NamedTuple):
     `restart_log_likelihoods` (optional, (r, R)) is the fit's per-restart
     best LML of each component and `fit_stats` its objective-evaluation
     counts (`models.fit.FitResult.stats`); both are None for an emulator
-    read from a snapshot. `noise` (optional, (N, r)) holds per-point observation-noise
-    variances projected to PC-score space, the diagonal each component's
-    Gram was built with. (The JAX container's gradient blocks are not yet
-    ported.)
+    read from a snapshot. `noise` (optional, (N, r)) holds per-point
+    observation-noise variances projected to PC-score space, the diagonal
+    each component's Gram was built with. `dZ` (optional, (N, d, r)) holds
+    gradient observations projected to PC-score space in the scaled design
+    coordinates (`project_gradients`): every component is then a joint
+    value + gradient GP, and the snapshot is grammar version 3. `dZ_noise`
+    carries known gradient-noise variances in the same layout.
     """
 
     scaling: DesignScaling
@@ -68,6 +75,8 @@ class MultivariateEmulator(NamedTuple):
     restart_log_likelihoods: Optional[torch.Tensor] = None  # (r, R)
     noise: Optional[torch.Tensor] = None  # (N, r)
     fit_stats: Optional[dict] = None  # the fit's FitResult.stats
+    dZ: Optional[torch.Tensor] = None  # (N, d, r) PC-space gradients
+    dZ_noise: Optional[torch.Tensor] = None  # (N, d, r) their variances
 
     @property
     def n_components(self) -> int:
@@ -134,46 +143,135 @@ def project_scores(Y, pca: PCAState, dtype=None) -> torch.Tensor:
     return (Yc @ f(pca.U)) / torch.sqrt(lam)[None, :]
 
 
+def _pca_tensors(pca: PCAState, like: torch.Tensor) -> PCAState:
+    """pca's fields (numpy arrays or tensors) as tensors of like's dtype and
+    device."""
+    return PCAState(*(torch.as_tensor(a).to(device=like.device,
+                                            dtype=like.dtype) for a in pca))
+
+
+def _as_tensor(a, dtype) -> torch.Tensor:
+    a = torch.as_tensor(a)
+    return a if dtype is None else a.to(dtype)
+
+
+def project_noise(noise, pca: PCAState, dtype=None) -> torch.Tensor:
+    """Per-PC observation-noise variances (N, r) from per-point output
+    noise: (N,), one variance per point in the original y units for every
+    output, or (N, t). Var(z_k,i) = sum_t U_tk^2 sigma_ti^2 / ystd_t^2 /
+    lambda_k; cross-PC covariances are dropped (exactly zero when the
+    z-scored noise is isotropic across outputs), the independent-component
+    approximation the PCA emulator makes for its posterior."""
+    noise = _as_tensor(noise, dtype)
+    t = np.shape(pca.ymean)[0]
+    if noise.ndim == 1:
+        noise = noise[:, None].expand(noise.shape[0], t)
+    if noise.shape[1] != t:
+        raise ValueError(
+            f"noise must be (N,) or (N, t={t}); got {tuple(noise.shape)}")
+    p = _pca_tensors(pca, noise)
+    lam = torch.clamp(p.eigenvalues, min=torch.finfo(noise.dtype).tiny)
+    return (noise / p.ystd[None, :] ** 2) @ p.U ** 2 / lam[None, :]
+
+
+def _gradient_weights(pca: PCAState, like: torch.Tensor) -> torch.Tensor:
+    """(t, r) weights U / (ystd sqrt(lambda)) of the PC-score map."""
+    p = _pca_tensors(pca, like)
+    lam = torch.clamp(p.eigenvalues, min=torch.finfo(like.dtype).tiny)
+    return p.U / (p.ystd[:, None] * torch.sqrt(lam)[None, :])
+
+
+def _gradient_block(a, pca: PCAState, what: str, dtype) -> torch.Tensor:
+    a = _as_tensor(a, dtype)
+    t = np.shape(pca.ymean)[0]
+    if a.ndim == 2 and t == 1:
+        a = a[:, :, None]
+    if a.ndim != 3 or a.shape[2] != t:
+        raise ValueError(f"{what} must be (N, d, t={t}); got "
+                         f"{tuple(a.shape)}")
+    return a
+
+
+def project_gradients(dY, pca: PCAState, scaling: DesignScaling,
+                      dtype=None) -> torch.Tensor:
+    """PC-space gradient observations (N, d, r) from raw output gradients
+    dY (N, d, t) (or (N, d) when t == 1) w.r.t. the RAW inputs. Both maps
+    are linear, so the projection is exact: the scaling X_s = (x - mins) /
+    ranges gives d/dX_s,a = ranges_a d/dx_a, and the PC score map gives
+    dz_k = sum_u dY_u U_uk / (ystd_u sqrt(lambda_k))."""
+    dY = _gradient_block(dY, pca, "gradients", dtype)
+    dZ = torch.einsum("nat,tr->nar", dY, _gradient_weights(pca, dY))
+    rng = torch.as_tensor(scaling.ranges).to(device=dY.device, dtype=dY.dtype)
+    return dZ * rng[None, :, None]
+
+
+def project_gradient_noise(dY_noise, pca: PCAState, scaling: DesignScaling,
+                           dtype=None) -> torch.Tensor:
+    """PC-space gradient-noise variances (N, d, r) from raw per-partial
+    variances (N, d, t) (or (N, d) when t == 1): through the squared
+    weights of `project_gradients`, cross-PC covariances dropped as in
+    `project_noise`."""
+    v = _gradient_block(dY_noise, pca, "gradient noise", dtype)
+    out = torch.einsum("nat,tr->nar", v, _gradient_weights(pca, v) ** 2)
+    rng = torch.as_tensor(scaling.ranges).to(device=v.device, dtype=v.dtype)
+    return out * (rng ** 2)[None, :, None]
+
+
 def _component_batch(X: torch.Tensor, Z: torch.Tensor,
-                     noise_pc: Optional[torch.Tensor] = None) -> GPData:
+                     noise_pc: Optional[torch.Tensor] = None,
+                     dZ: Optional[torch.Tensor] = None,
+                     dZ_noise: Optional[torch.Tensor] = None) -> GPData:
     """The r component GPs as one batched GPData: y (r, N) holds each
-    component's scores, noise (r, N) its PC-space noise variances."""
-    return GPData(X=X, y=Z.mT, noise=None if noise_pc is None else noise_pc.mT)
+    component's scores, noise (r, N) its PC-space noise variances, dY and
+    dY_noise (r, N, d) its PC-space gradient blocks."""
+    def comp(a):
+        return None if a is None else a.permute(2, 0, 1)
+
+    return GPData(X=X, y=Z.mT, noise=None if noise_pc is None else noise_pc.mT,
+                  dY=comp(dZ), dY_noise=comp(dZ_noise))
 
 
 def _vmapped_fit(
     generator: torch.Generator, X: torch.Tensor, Z: torch.Tensor,
     config: GPConfig, restart_chunk: Optional[int] = None,
-    noise_pc: Optional[torch.Tensor] = None, **fit_kwargs,
+    noise_pc: Optional[torch.Tensor] = None,
+    dZ: Optional[torch.Tensor] = None,
+    dZ_noise: Optional[torch.Tensor] = None, **fit_kwargs,
 ) -> _fit.FitResult:
     """`fit_gp` of every component at once (the JAX package vmaps it over
     the component axis): the (r x R) lanes step in one lock-step LBFGS.
     Each component's restarts come from one `sample_restarts` call, in
     component order. FitResult fields carry the component axis in front."""
-    data = _component_batch(X, Z, noise_pc)
+    data = _component_batch(X, Z, noise_pc, dZ, dZ_noise)
     return _fit._fit_components(generator, X, data.y, config,
                                 restart_chunk=restart_chunk,
-                                noise=data.noise, **fit_kwargs)
+                                noise=data.noise, dY=data.dY,
+                                dY_noise=data.dY_noise, **fit_kwargs)
 
 
 def _vmapped_states(
     params: GPParams, X: torch.Tensor, Z: torch.Tensor, config: GPConfig,
     noise_pc: Optional[torch.Tensor] = None,
+    dZ: Optional[torch.Tensor] = None,
+    dZ_noise: Optional[torch.Tensor] = None,
 ) -> GPPosteriorState:
     """Per-component serve states as ONE batched build over (r, N, N): Gram,
     factorization and GLS solves for every component at once, with the
     per-component jitter ladder of `precompute_predictor`."""
-    return precompute_predictor(params, _component_batch(X, Z, noise_pc),
-                                config)
+    return precompute_predictor(
+        params, _component_batch(X, Z, noise_pc, dZ, dZ_noise), config)
 
 
 def _predict_components(
     states: GPPosteriorState, params: GPParams, X: torch.Tensor,
     Z: torch.Tensor, Xs: torch.Tensor, config: GPConfig,
+    dZ: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-component posterior at Xs: means, variances, each (r, m)."""
-    return predict_from_precomputed(states, params, GPData(X=X, y=Z.mT), Xs,
-                                    config)
+    """Per-component posterior at Xs: means, variances, each (r, m). Noise
+    enters only the stored factorizations; gradient data changes the cross
+    covariance's rows, so dZ rides along."""
+    return predict_from_precomputed(states, params,
+                                    _component_batch(X, Z, dZ=dZ), Xs, config)
 
 
 def reconstruct_observables(
@@ -196,13 +294,75 @@ def predict_multivariate(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Posterior mean and variance in observable space: (m, t), (m, t).
     Xs_raw is (m, d) in natural parameter units (array or tensor)."""
-    Xs = apply_scaling(
+    m_pc, v_pc = _predict_components(
+        emu.states, emu.params, emu.X, emu.Z, _scaled_queries(emu, Xs_raw),
+        emu.config, dZ=emu.dZ,
+    )
+    return reconstruct_observables(m_pc, v_pc, emu.pca)
+
+
+def _scaled_queries(emu: MultivariateEmulator, Xs_raw) -> torch.Tensor:
+    return apply_scaling(
         torch.as_tensor(Xs_raw, dtype=emu.X.dtype, device=emu.X.device),
         emu.scaling,
     )
-    m_pc, v_pc = _predict_components(
-        emu.states, emu.params, emu.X, emu.Z, Xs, emu.config
-    )
+
+
+def predict_multivariate_gradient(
+    emu: MultivariateEmulator, Xs_raw
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Posterior mean and marginal variance of the observable gradients
+    d f_u / d x_a w.r.t. the RAW inputs: ((m, d, t), (m, d, t)). The
+    per-PC gradient posteriors (`gp.predict_gradient`) go back through the
+    PCA reconstruction (means by sqrt(lambda) U, variances by lambda U^2,
+    the independent-component approximation) and the design scaling
+    (divide by ranges, variances by ranges^2). Needs a twice-
+    differentiable kernel; values-only and gradient-enhanced emulators
+    alike."""
+    gm, gv = predict_gradient(
+        emu.states, emu.params, _component_batch(emu.X, emu.Z, dZ=emu.dZ),
+        _scaled_queries(emu, Xs_raw), emu.config)  # (r, m, d) each
+    p = _pca_tensors(emu.pca, gm)
+    Wm = p.U * torch.sqrt(p.eigenvalues)[None, :] * p.ystd[:, None]
+    Wv = p.U ** 2 * p.eigenvalues[None, :] * (p.ystd ** 2)[:, None]
+    inv_rng = 1.0 / emu.scaling.ranges.to(gm.dtype)
+    mean = torch.einsum("rma,tr->mat", gm, Wm)
+    var = torch.einsum("rma,tr->mat", gv, Wv)
+    return (mean * inv_rng[None, :, None],
+            var * (inv_rng ** 2)[None, :, None])
+
+
+def precompute_fast_multivariate(
+    emu: MultivariateEmulator,
+) -> FastPredictorState:
+    """Batched (r, ...) FastPredictorState: explicit per-component
+    triangular inverses of the stored factorizations, so serving is
+    GEMM-only (`gp.predict_fast`); one-time r N^3/3."""
+    if emu.dZ is not None:
+        raise ValueError(
+            "fast (GEMM-only) serving does not support gradient-enhanced "
+            "emulators; use predict_multivariate (the joint cross build "
+            "dominates, not the solves)"
+        )
+    return fast_predictor_from_state(emu.states)
+
+
+def _predict_components_fast(
+    fast_states: FastPredictorState, params: GPParams, X: torch.Tensor,
+    Z: torch.Tensor, Xs: torch.Tensor, config: GPConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-component GEMM-only posterior at Xs: (r, m) each."""
+    return predict_fast(fast_states, params, GPData(X=X, y=Z.mT), Xs, config)
+
+
+def predict_multivariate_fast(
+    emu: MultivariateEmulator, fast_states: FastPredictorState, Xs_raw
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GEMM-only multivariate serving (see `precompute_fast_multivariate`):
+    (m, t), (m, t)."""
+    m_pc, v_pc = _predict_components_fast(
+        fast_states, emu.params, emu.X, emu.Z, _scaled_queries(emu, Xs_raw),
+        emu.config)
     return reconstruct_observables(m_pc, v_pc, emu.pca)
 
 
@@ -236,16 +396,14 @@ def fit_multivariate(
     restart) wins; alpha_refine > 0 adds that many golden-section probes
     around the grid winner (`models.fit._golden_refine_alpha`).
 
-    noise, gradients and gradient_noise are not yet ported and raise
-    NotImplementedError.
+    noise: per-point observation-noise variances, (N,) in the original y
+    units for every output or (N, t); `project_noise` maps them into each
+    component's Gram diagonal. gradients: observed output gradients
+    (N, d, t) w.r.t. the RAW inputs ((N, d) when t == 1): every component
+    then trains as a joint value + gradient GP (`project_gradients`; needs
+    power_exponential alpha=2 or matern52[_ard]); gradient_noise: their
+    known variances, same shape.
     """
-    if noise is not None:
-        raise NotImplementedError(
-            "fit_multivariate: observation noise (noise=) is not yet ported")
-    if gradients is not None or gradient_noise is not None:
-        raise NotImplementedError(
-            "fit_multivariate: gradient observations (gradients=) are not "
-            "yet ported")
     if alpha_grid:
         if config.covariance is not CovarianceFamily.POWER_EXPONENTIAL:
             raise ValueError(
@@ -259,6 +417,8 @@ def fit_multivariate(
                 _fit.generator_copy(generator), X_raw, Y, cfg_a,
                 pca_variance=pca_variance, standardize=standardize,
                 param_ranges=param_ranges, restart_chunk=restart_chunk,
+                noise=noise, gradients=gradients,
+                gradient_noise=gradient_noise,
             )
             lls = emu_a.restart_log_likelihoods
             best = torch.where(torch.isfinite(lls), lls, -torch.inf)
@@ -281,13 +441,29 @@ def fit_multivariate(
 
     pca = PCAState(*(dev(a) for a in pca_np))
     Z = dev(Z_np).to(X.dtype)
+
+    def on_device(a):
+        return torch.as_tensor(a).to(device=X.device, dtype=X.dtype)
+
+    noise_pc = (None if noise is None
+                else project_noise(on_device(noise), pca, dtype=X.dtype))
+    dZ = (None if gradients is None
+          else project_gradients(on_device(gradients), pca, scaling,
+                                 dtype=X.dtype))
+    dZ_noise = (None if gradient_noise is None
+                else project_gradient_noise(on_device(gradient_noise), pca,
+                                            scaling, dtype=X.dtype))
+    if dZ_noise is not None and dZ is None:
+        raise ValueError("gradient_noise given without gradients")
     logger.info(
         "fit_multivariate: N=%d d=%d t=%d -> r=%d components "
         "(pca_variance=%g)", X.shape[0], X.shape[1], Y.shape[1], Z.shape[1],
         pca_variance,
     )
-    fit = _vmapped_fit(generator, X, Z, config, restart_chunk=restart_chunk)
-    states = _vmapped_states(fit.params, X, Z, config)
+    fit = _vmapped_fit(generator, X, Z, config, restart_chunk=restart_chunk,
+                       noise_pc=noise_pc, dZ=dZ, dZ_noise=dZ_noise)
+    states = _vmapped_states(fit.params, X, Z, config, noise_pc=noise_pc,
+                             dZ=dZ, dZ_noise=dZ_noise)
     lls = fit.restart_log_likelihoods.detach().cpu().numpy()
     for i in range(Z.shape[1]):
         finite = np.isfinite(lls[i])
@@ -307,7 +483,7 @@ def fit_multivariate(
     return MultivariateEmulator(
         scaling=scaling, X=X, Z=Z, pca=pca, params=fit.params, states=states,
         config=config, restart_log_likelihoods=fit.restart_log_likelihoods,
-        fit_stats=fit.stats,
+        noise=noise_pc, fit_stats=fit.stats, dZ=dZ, dZ_noise=dZ_noise,
     )
 
 
@@ -324,7 +500,8 @@ def emulator_from_numpy(
 
     Keys (the leaves of a JAX `MultivariateEmulator`): mins, ranges (d,);
     X (N, d) scaled design; Z (N, r); ymean, ystd (t,); eigenvalues (r,);
-    U (t, r); log_amp, log_nugget (r,); log_ls (r, k); optional noise (N, r).
+    U (t, r); log_amp, log_nugget (r,); log_ls (r, k); optional noise
+    (N, r), dZ and dZ_noise (N, d, r).
     """
     def t(key):  # a copy: the caller's arrays may be read-only views
         return torch.tensor(np.asarray(arrays[key]), dtype=dtype,
@@ -336,10 +513,12 @@ def emulator_from_numpy(
     params = GPParams(log_amp=t("log_amp"), log_nugget=t("log_nugget"),
                       log_ls=t("log_ls"))
     X, Z = t("X"), t("Z")
-    noise = t("noise") if arrays.get("noise") is not None else None
-    states = (_vmapped_states(params, X, Z, config, noise_pc=noise)
+    noise, dZ, dZ_noise = (t(k) if arrays.get(k) is not None else None
+                           for k in ("noise", "dZ", "dZ_noise"))
+    states = (_vmapped_states(params, X, Z, config, noise_pc=noise, dZ=dZ,
+                              dZ_noise=dZ_noise)
               if build_states else None)
     return MultivariateEmulator(
         scaling=scaling, X=X, Z=Z, pca=pca, params=params, states=states,
-        config=config, noise=noise,
+        config=config, noise=noise, dZ=dZ, dZ_noise=dZ_noise,
     )

@@ -309,3 +309,162 @@ def kdiag(Xs: torch.Tensor, params: GPParams, config: GPConfig) -> torch.Tensor:
         val = val + torch.exp(params.log_nugget)
     ones = torch.ones(Xs.shape[-2], dtype=Xs.dtype, device=Xs.device)
     return val[..., None] * ones
+
+
+# --- gradient observations: the joint (value, gradient) covariance ---------
+# Library tensor math, as in the JAX package (kernels.py:360-543): one
+# scaled squared distance S, the radial profile g and its derivatives
+# g'(S), g''(S), and (*B, n1, n2, d[, d]) difference slabs. Autograd
+# differentiates it exactly, so the closed-form LML backward (one VJP of
+# `gram_joint`) needs nothing more.
+
+_GRAD_OK_FAMILIES = (
+    CovarianceFamily.POWER_EXPONENTIAL,
+    CovarianceFamily.MATERN52,
+    CovarianceFamily.MATERN52_ARD,
+)
+
+
+def _require_grad_family(config: GPConfig) -> None:
+    fam = config.covariance
+    if fam not in _GRAD_OK_FAMILIES or (
+        fam is CovarianceFamily.POWER_EXPONENTIAL
+        and config.power_exp_alpha != 2.0
+    ):
+        raise ValueError(
+            "gradient observations need a radial profile twice "
+            "differentiable at zero distance: power_exponential with "
+            "alpha=2 or matern52/matern52_ard; got "
+            f"{fam.value}"
+            + (
+                f" (alpha={config.power_exp_alpha})"
+                if fam is CovarianceFamily.POWER_EXPONENTIAL
+                else ""
+            )
+        )
+
+
+def _g012(S: torch.Tensor, config: GPConfig):
+    """(g, g', g'') of the radial profile at scaled squared distance S
+    (amp excluded); only for the gradient-capable families."""
+    fam = config.covariance
+    if fam not in _GRAD_OK_FAMILIES:
+        raise ValueError(
+            f"_g012: family {fam.value} has no twice-differentiable radial "
+            "profile (caller must run _require_grad_family first)"
+        )
+    if fam is CovarianceFamily.POWER_EXPONENTIAL:
+        g = torch.exp(-0.5 * S)
+        return g, -0.5 * g, 0.25 * g
+    # Matern-5/2: g(s) = (1 + sqrt5 r + 5 s / 3) e^{-sqrt5 r}, r = sqrt(s);
+    # g'(s) = -(5/6)(1 + sqrt5 r) e^{-sqrt5 r}; g''(s) = (25/12) e^{-sqrt5 r}
+    r = torch.sqrt(S + 1e-36)
+    sq5 = 5.0 ** 0.5
+    e = torch.exp(-sq5 * r)
+    g = (1.0 + sq5 * r + (5.0 / 3.0) * S) * e
+    return g, -(5.0 / 6.0) * (1.0 + sq5 * r) * e, (25.0 / 12.0) * e
+
+
+def grad_prior_scale(config: GPConfig) -> float:
+    """c_g = -2 g'(0): prior Var(df/dx_a) = amp c_g / ell_a^2."""
+    _require_grad_family(config)
+    if config.covariance is CovarianceFamily.POWER_EXPONENTIAL:
+        return 1.0
+    return 5.0 / 3.0  # Matern-5/2
+
+
+def _ell_vec(params: GPParams, config: GPConfig, d: int) -> torch.Tensor:
+    """Length scale per input dimension: (*B, d)."""
+    ls = torch.exp(params.log_ls)
+    if config.num_length_scales == 1:
+        return ls[..., :1].expand(ls.shape[:-1] + (d,))
+    return ls
+
+
+def joint_cross(
+    X1: torch.Tensor,
+    X2: torch.Tensor,
+    params: GPParams,
+    config: GPConfig,
+    *,
+    grad_rows: bool = False,
+    grad_cols: bool = False,
+    value_cols: bool = True,
+) -> torch.Tensor:
+    """Cross covariance between (value | gradient) observation sets:
+    (*B, rows, cols). Rows index X1 (n1 values, then n1*d gradients in
+    (point, dim) row-major order when grad_rows); columns index X2 likewise
+    (n2 values when value_cols, then n2*d gradients when grad_cols). No
+    nugget; `gram_joint` adds the diagonal. A value-only request is
+    `cross_covariance` (K1 at float32), correct for every family."""
+    if not (grad_rows or grad_cols):
+        if not value_cols:
+            raise ValueError("joint_cross: nothing requested")
+        return cross_covariance(X1, X2, params, config)
+    if not (value_cols or grad_cols):
+        raise ValueError("joint_cross: no columns requested")
+    _require_grad_family(config)
+    n1, d = X1.shape[-2:]
+    n2 = X2.shape[-2]
+    a = torch.exp(params.log_amp)[..., None, None]  # (*B, 1, 1)
+    S = _sqdist(_scaled(X1, params, config), _scaled(X2, params, config))
+    g, g1, g2 = _g012(S, config)  # (*B, n1, n2)
+    inv2 = 1.0 / _ell_vec(params, config, d) ** 2  # (*B, d)
+    # Dw[..., i, j, a] = (x1_i - x2_j)_a / ell_a^2
+    Dw = (X1[..., :, None, :] - X2[..., None, :, :]) * inv2[..., None, None, :]
+    batch = Dw.shape[:-3]
+    top = [a * g] if value_cols else []
+    if grad_cols:
+        # Cov(f(x1_i), df/dx_b(x2_j)) = -2 amp g' Dw
+        top.append(((-2.0 * a) * g1)[..., None] * Dw)
+        top[-1] = top[-1].reshape(batch + (n1, n2 * d))
+    top = torch.cat([t.expand(batch + t.shape[-2:]) for t in top], dim=-1)
+    if not grad_rows:
+        return top
+    bottom = []
+    if value_cols:
+        # Cov(df/dx_a(x1_i), f(x2_j)) = +2 amp g' Dw
+        gv = ((2.0 * a) * g1)[..., None] * Dw  # (*B, n1, n2, d)
+        bottom.append(gv.transpose(-1, -2).reshape(batch + (n1 * d, n2)))
+    if grad_cols:
+        # Cov(df/dx_a(x1_i), df/dx_b(x2_j))
+        gg = ((-4.0 * a) * g2)[..., None, None] * (
+            Dw[..., :, None] * Dw[..., None, :]
+        ) - ((2.0 * a) * g1)[..., None, None] * torch.diag_embed(
+            inv2)[..., None, None, :, :]
+        bottom.append(gg.transpose(-3, -2).reshape(batch + (n1 * d, n2 * d)))
+    return torch.cat([top, torch.cat(bottom, dim=-1)], dim=-2)
+
+
+def gram_joint(
+    X: torch.Tensor,
+    params: GPParams,
+    config: GPConfig,
+    noise: torch.Tensor | None = None,
+    grad_noise: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Joint Gram of (f(X), grad f(X)): (*B, N(1+d), N(1+d)), diagonal
+    included. Value rows get nugget + jitter (the `gram_matrix`
+    convention), gradient rows the same relative regularization in
+    gradient units, (nugget + jitter amp) c_g / ell_a^2; noise (*B, N) and
+    grad_noise (*B, N, d) are known variances added to the respective
+    diagonals."""
+    n, d = X.shape[-2:]
+    K = joint_cross(X, X, params, config, grad_rows=True, grad_cols=True)
+    K = 0.5 * (K + K.mT)
+    amp = torch.exp(params.log_amp)
+    jitter_frac = effective_jitter_frac(n * (1 + d), X.dtype, config)
+    base = (torch.exp(params.log_nugget) + jitter_frac * amp)[..., None]
+    cg = grad_prior_scale(config)
+    diag_v = base.expand(base.shape[:-1] + (n,))
+    if noise is not None:
+        diag_v = diag_v + noise.to(X.dtype)
+    diag_g = base * cg / _ell_vec(params, config, d) ** 2  # (*B, d)
+    diag_g = diag_g.repeat((1,) * (diag_g.ndim - 1) + (n,))  # (*B, n*d)
+    if grad_noise is not None:
+        gn = grad_noise.to(X.dtype)
+        diag_g = diag_g + gn.reshape(gn.shape[:-2] + (n * d,))
+    batch = tuple(np.broadcast_shapes(diag_v.shape[:-1], diag_g.shape[:-1]))
+    diag = torch.cat([diag_v.expand(batch + (n,)),
+                      diag_g.expand(batch + (n * d,))], dim=-1)
+    return K + torch.diag_embed(diag)

@@ -16,6 +16,7 @@ has no backward kernel either; the library factor differentiates natively.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
@@ -81,78 +82,173 @@ def _panel_factor(P: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return L.reshape(P.shape), Linv.reshape(P.shape)
 
 
-# The history product of `left_cholesky` is summed over k in chunks of this
-# many columns. As one GEMM over k up to N, the H100's float32 GEMM leans
-# low as k grows (a k = 16,384 sum of squares 1.3e-5 low, against 5e-8 on
-# the CPU), which put config 4's float32 factor 1.2e-4 x max|L| from float64
-# and its LML 9.9e-5 x |LML|; in chunks of 2048, 3.6e-5 and 7.7e-6, for +11%
-# of the factor's time (`tools/f32_factor_error.py`; PERF.md section 6).
-HISTORY_K_CHUNK = 2048
+# Matmul precision tiers of `left_cholesky`'s updates and of the LML
+# backward (the JAX package's `_PRECISIONS`, ops/linalg.py:60-64), as they
+# run on an H100 for float32 operands on the card:
+#   "highest"  full FP32 (TF32 off, the package-wide setting);
+#   "high"     3xTF32: each operand split a = hi + lo, hi = a rounded to
+#              the nearest TF32 value (10 mantissa bits), lo = a - hi
+#              rounded likewise, and hi.hi + hi.lo + lo.hi as three
+#              tensor-core GEMMs, the counterpart of the TPU's bf16x3;
+#   "default"  one TF32 GEMM (JAX's DEFAULT on a GPU).
+# Float64 operands, and every operand on the CPU, compute in full precision
+# whatever the tier, as the JAX package's CPU backend does.
+TIERS = ("default", "high", "highest")
+
+
+@contextlib.contextmanager
+def tf32_matmul():
+    """TF32 on for float32 matmuls inside the block only; the process flag
+    (off since the package import) is restored on exit, exception or not."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def tf32_round(a: torch.Tensor) -> torch.Tensor:
+    """a rounded to the nearest TF32 value (half away from zero): the low
+    13 of float32's 23 mantissa bits cleared after adding half of their
+    weight. The tensor cores truncate those bits, so an operand already in
+    TF32 enters a TF32 GEMM exactly and the split stays unbiased."""
+    return ((a.view(torch.int32) + 4096) & -8192).view(torch.float32)
+
+
+def tf32_split(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """a = hi + lo exactly, hi = `tf32_round(a)`, |lo| <= 2^-11 |a|."""
+    hi = tf32_round(a)
+    return hi, a - hi
+
+
+def tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """hi.hi + (hi.lo + lo.hi) of the operands' TF32 splits, each remainder
+    rounded to TF32 too: three TF32 GEMMs when TF32 is on. The split's own
+    error (the dropped lo.lo term, the remainders' rounding) is ~2^-22 of
+    the product; what is left on the H100 is the tensor cores' accumulation,
+    which leans low as k grows whatever the operands (a k = 4,096 sum of
+    squares 2.4e-5 low with one TF32 pass and with three alike, 4e-9 in
+    FP32), so "high" sits between one TF32 pass and FP32 (PERF.md)."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    al, bl = tf32_round(al), tf32_round(bl)
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
+def matmul_tier(a: torch.Tensor, b: torch.Tensor, tier: str) -> torch.Tensor:
+    """a @ b at a precision tier (see TIERS)."""
+    if tier not in TIERS:
+        raise ValueError(f"unknown precision tier {tier!r}")
+    if tier == "highest" or a.dtype != torch.float32 or not a.is_cuda:
+        return a @ b
+    with tf32_matmul():
+        return a @ b if tier == "default" else tf32x3(a, b)
 
 
 def left_cholesky(
     A: torch.Tensor,
     block: int = 1024,
     update_precision: str = "highest",
+    trsm_precision: str | None = None,
     diag: str = "xla",
 ) -> torch.Tensor:
-    """Left-looking blocked lower Cholesky: per panel, the history GEMMs
-    folding all earlier panels (one per HISTORY_K_CHUNK columns of them),
-    then the diagonal block and the rows below.
+    """Left-looking blocked lower Cholesky: per panel, ONE history GEMM
+    folding all earlier panels, then the diagonal block and the rows below.
     n must be a multiple of `block` (pad with `pad_spd`). Differentiable,
     with the Murray backward.
 
     diag="pallas" (float32): kernel K3 (`ops/hopper/panel.py`) returns the
     diagonal block's factor AND its inverse in one call, and the rows below
-    are one GEMM, L21 = P21 invK^T, as in the JAX package. diag="xla", and
-    every float64 operand: the library factor of the diagonal block and a
-    triangular solve for the rows below.
+    are one GEMM, L21 = P21 invK^T, as in the JAX package. diag="xla": the
+    library factor of the diagonal block and a triangular solve for the
+    rows below (at a float32 trsm tier below "highest", the JAX route: a
+    `tri_inv_block` inverse and the GEMM at that tier). Float64 operands
+    take the library panels and full-precision GEMMs.
 
-    Only update_precision="highest" (full FP32) is ported: the TF32 tiers
-    need their own H100 accuracy study.
+    update_precision is the history GEMM's tier (TIERS); trsm_precision,
+    the rows-below GEMM's, defaults to it. At "highest" a float32 history
+    product is formed in float64 and rounded once to float32: on the H100
+    one float32 GEMM over k up to N leans low as k grows (config 4's LML
+    9.9e-5 x |LML| from float64, 7.7e-6 in k-chunks of 2048), and the
+    float64 product reaches the CPU's 5.7e-7 at the chunks' cost
+    (`tools/f32_factor_error.py`; PERF.md).
     """
     if diag not in ("xla", "pallas"):
         raise ValueError(f"left_cholesky: unknown diag {diag!r}")
-    if update_precision != "highest":
-        raise NotImplementedError(
-            f"left_cholesky(update_precision={update_precision!r}) is not yet "
-            "ported; only 'highest' (full FP32)"
-        )
+    tprec = trsm_precision or update_precision
+    for t in (update_precision, tprec):
+        if t not in TIERS:
+            raise ValueError(f"left_cholesky: unknown precision tier {t!r}")
     n = A.shape[-1]
     if n % block:
         raise ValueError(f"left_cholesky: N={n} % {block} != 0 (pad_spd first)")
-    return _MurrayCholesky.apply(A, _left_cholesky_impl, block, diag)
+    return _MurrayCholesky.apply(A, _left_cholesky_impl, block,
+                                 update_precision, tprec, diag)
 
 
-def _left_cholesky_impl(A: torch.Tensor, block: int, diag: str) -> torch.Tensor:
+def _history(A_panel, Lrows, Lpanel, tier: str) -> torch.Tensor:
+    """A_panel - Lrows Lpanel^T over a flat batch: (B, m, b)."""
+    if tier == "highest" and A_panel.dtype == torch.float32:
+        return torch.baddbmm(A_panel.double(), Lrows.double(),
+                             Lpanel.double().mT, alpha=-1.0).float()
+    return A_panel - matmul_tier(Lrows, Lpanel.mT, tier)
+
+
+def _left_cholesky_impl(A: torch.Tensor, block: int, upd: str, tprec: str,
+                        diag: str) -> torch.Tensor:
     n = A.shape[-1]
-    use_k3 = diag == "pallas" and A.dtype == torch.float32
+    f32 = A.dtype == torch.float32
+    use_k3 = diag == "pallas" and f32
     L = torch.zeros(A.shape, dtype=A.dtype, device=A.device)
     L3 = L.view(-1, n, n)
     for cj in range(0, n, block):
         Pa = A[..., cj:, cj:cj + block]  # (*B, n - cj, b)
         if cj:
-            P = Pa.clone(memory_format=torch.contiguous_format).view(
-                -1, n - cj, block)
-            for k0 in range(0, cj, HISTORY_K_CHUNK):
-                k1 = min(k0 + HISTORY_K_CHUNK, cj)
-                P.baddbmm_(L3[:, cj:, k0:k1], L3[:, cj:cj + block, k0:k1].mT,
-                           alpha=-1.0)
-            Pa = P.view(Pa.shape)
+            Pa = _history(Pa.reshape(-1, n - cj, block), L3[:, cj:, :cj],
+                          L3[:, cj:cj + block, :cj], upd).view(Pa.shape)
+        invK = None
         if use_k3:
             Lkk, invK = _panel_factor(Pa[..., :block, :])
         else:
             Lkk = xla_cholesky(Pa[..., :block, :])
         L[..., cj:cj + block, cj:cj + block] = Lkk
         if cj + block < n:
-            if use_k3:
-                L21 = Pa[..., block:, :] @ invK.mT
+            P21 = Pa[..., block:, :]
+            if invK is None and f32 and tprec != "highest":
+                invK = tri_inv_block(Lkk, precision=tprec)
+            if invK is not None:
+                L21 = matmul_tier(P21, invK.mT, tprec)
             else:  # L21 Lkk^T = P21
                 L21 = torch.linalg.solve_triangular(
-                    Lkk.mT, Pa[..., block:, :], upper=True, left=False
-                )
+                    Lkk.mT, P21, upper=True, left=False)
             L[..., cj + block:, cj:cj + block] = L21
     return L
+
+
+def choose_update_precision(kappa_bound: float, tol: float = 1e-3) -> str:
+    """The update tier from a condition-number bound (JAX
+    ops/linalg.py:281-295): "high" (3xTF32 on the H100) up to
+    HIGH_TIER_KAPPA_MAX x (tol / 1e-3), else "highest". Never "default"."""
+    if kappa_bound <= HIGH_TIER_KAPPA_MAX * (tol / 1e-3):
+        return "high"
+    return "highest"
+
+
+# The largest condition-number bound routed to "high". The JAX package's
+# 2e4 was measured for the v5e's bf16x3; the H100's 3xTF32 factor is
+# 5.6e-4 x max|L| from float64 at cond 2e4 (over the "highest" tier's 5e-4
+# gate) and 1.2e-4 at cond 1e3 (N=4,096, `chip_smoke.py`'s tier table;
+# PERF.md), so the port routes to "high" only up to 1e4.
+HIGH_TIER_KAPPA_MAX = 1e4
+
+
+def gp_kappa_bound(n: int, amp: float, nugget_eff: float) -> float:
+    """Condition bound of C = amp R + nugget_eff I, R a correlation matrix
+    (unit diagonal, entries in [-1, 1]): lambda_max <= amp n + g,
+    lambda_min >= g."""
+    g = max(float(nugget_eff), 1e-300)
+    return 1.0 + n * float(amp) / g
 
 
 def _tri_inv_lower(T: torch.Tensor) -> torch.Tensor:
@@ -168,7 +264,8 @@ def _tri_inv_lower(T: torch.Tensor) -> torch.Tensor:
     return X
 
 
-def tri_inv_block(T: torch.Tensor, base: int = 64) -> torch.Tensor:
+def tri_inv_block(T: torch.Tensor, base: int = 64,
+                  precision: str = "highest") -> torch.Tensor:
     """Lower-triangular inverse with log sequential depth, batched over
     (*B).
 
@@ -176,18 +273,21 @@ def tri_inv_block(T: torch.Tensor, base: int = 64) -> torch.Tensor:
     [[invA, 0], [-invC B invA, invC]]; the two diagonal halves are
     independent, so each level stacks them into the batch and the only
     sequential loop is ONE base-size substitution over all leaves. The
-    products are full FP32 (TF32 is off package-wide).
+    merge products run at `precision` (a tier of TIERS; the JAX package's
+    argument), the base substitution in full FP32.
     """
     b = T.shape[-1]
     if b <= base or b % 2 != 0:
         return _tri_inv_lower(T)
     h = b // 2
-    invs = tri_inv_block(torch.stack([T[..., :h, :h], T[..., h:, h:]]), base)
+    invs = tri_inv_block(torch.stack([T[..., :h, :h], T[..., h:, h:]]), base,
+                         precision)
     invA, invC = invs[0], invs[1]
     out = torch.zeros_like(T)
     out[..., :h, :h] = invA
     out[..., h:, h:] = invC
-    out[..., h:, :h] = -(invC @ (T[..., h:, :h] @ invA))
+    out[..., h:, :h] = -matmul_tier(
+        invC, matmul_tier(T[..., h:, :h], invA, precision), precision)
     return out
 
 

@@ -533,3 +533,90 @@ def test_fit_ensemble_on_the_card(dev):
     best = r64.log_likelihood
     short = ((best - at32) / best.abs().clamp(min=1.0)).max().item()
     assert short <= 1e-2, short
+
+
+# --- the update-precision tiers and the gradient path's K3 batch -----------
+
+
+def test_3xtf32_gemm_beats_one_tf32_pass(dev):
+    """`linalg.matmul_tier` on the card, against the float64 product: the
+    3xTF32 tier ("high") sits far below one TF32 pass ("default", ~2^-11
+    relative) and near full FP32 ("highest"); the process flag is off
+    again after each call."""
+    from madaiemulator_tpu_torch.ops import linalg
+
+    rng = np.random.default_rng(31)
+    a = torch.tensor(rng.standard_normal((1024, 2048)), dtype=torch.float32,
+                     device=dev)
+    b = torch.tensor(rng.standard_normal((2048, 512)), dtype=torch.float32,
+                     device=dev)
+    want = a.double() @ b.double()
+    err = {}
+    for tier in linalg.TIERS:
+        got = linalg.matmul_tier(a, b, tier)
+        err[tier] = ((got.double() - want).abs().max()
+                     / want.abs().max()).item()
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert err["default"] > 1e-5, err  # TF32 really ran
+    assert err["high"] < err["default"] / 30, err
+    assert err["high"] < 10 * err["highest"] + 1e-6, err
+
+
+def test_tf32_context_restores_the_flags_on_an_exception(dev):
+    from madaiemulator_tpu_torch.ops import linalg
+
+    a = torch.ones(64, 64, device=dev)
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32,
+              torch.get_float32_matmul_precision())
+    with pytest.raises(RuntimeError, match="inside"):
+        with linalg.tf32_matmul():
+            assert torch.backends.cuda.matmul.allow_tf32 is True
+            a @ a
+            raise RuntimeError("inside")
+    assert (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.get_float32_matmul_precision()) == before
+    assert before[0] is False
+
+
+def test_left_cholesky_high_tier_on_the_card(dev):
+    """The "high" tier (3xTF32 history and rows-below GEMMs, K3 panels) of
+    a well-conditioned Gram against its float64 factor, within the
+    "highest" tier's 5e-4 x max|L| gate; one TF32 pass is further off."""
+    from madaiemulator_tpu_torch.ops import linalg
+
+    rng = np.random.default_rng(32)
+    U = _points(rng, 1, 2048, 6).to(dev)
+    A = k1.pairwise_covariance_plain(U, U, torch.ones(1, device=dev),
+                                     torch.ones(1, device=dev),
+                                     "power_exponential", True)
+    L64 = torch.linalg.cholesky(A.double())
+    err = {}
+    for tier in linalg.TIERS:
+        L = linalg.left_cholesky(A, block=512, update_precision=tier,
+                                 diag="pallas")
+        err[tier] = ((L.double() - L64).abs().max()
+                     / L64.abs().max()).item()
+    assert err["highest"] <= 5e-5 and err["high"] <= 5e-4, err
+    assert err["high"] < err["default"], err
+
+
+def test_k3_at_the_gradient_batch(dev):
+    """K3 at (16, 512, 512), the gradient path's lane batch (4 components x
+    4 restarts of a 3,584-row joint Gram, block 512): against its plain
+    version and a float64 factor, as test_k3_matches_plain_and_f64."""
+    rng = np.random.default_rng(16)
+    A = _grams(rng, 16, 512)
+    before = k3.launches
+    L, Linv = k3.panel_factor(A.to(dev))
+    Lp, Linvp = k3.panel_factor_plain(A.to(dev))
+    L64 = torch.linalg.cholesky(A.double())
+    torch.cuda.synchronize()
+    assert k3.launches == before + 1
+    scale, iscale = L64.abs().max().item(), Linvp.abs().max().item()
+    assert (L.cpu().double() - L64).abs().max().item() <= K2_RTOL * scale
+    assert (L - Lp).abs().max().item() <= K2_RTOL * scale
+    assert (Linv - Linvp).abs().max().item() <= K2_RTOL * iscale
+    eye = torch.eye(512, dtype=torch.float64, device=dev)
+    assert (Linv.double() @ L.double() - eye).abs().max().item() <= 1e-4

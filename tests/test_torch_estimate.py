@@ -200,11 +200,19 @@ def test_alpha_grid_picks_same_alpha(mv_fits):
 
 
 def test_fit_multivariate_rejects_unported():
+    """noise= and gradients= are ported (tests/test_torch_gradients.py);
+    what fit_multivariate still refuses, it refuses with the JAX package's
+    ValueErrors: gradient noise without gradients, and noise or gradients
+    of the wrong shape."""
     X, Y = torch.zeros(4, 1, dtype=torch.float64), torch.ones(4, 2,
                                                               dtype=torch.float64)
+    Y[:, 1] = torch.arange(4)
     cfg = tcfg.GPConfig(nparams=1)
-    for kw in (dict(noise=torch.ones(4)), dict(gradients=torch.ones(4, 1, 2))):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+    for kw, what in ((dict(gradient_noise=torch.ones(4, 1, 2)),
+                      "without gradients"),
+                     (dict(noise=torch.ones(4, 3)), "noise must be"),
+                     (dict(gradients=torch.ones(4, 2)), "gradients must be")):
+        with pytest.raises(ValueError, match=what):
             tmv.fit_multivariate(torch.Generator(), X, Y, cfg, **kw)
 
 
@@ -404,11 +412,12 @@ def _sgpr_state(tmp_path):
     return str(p)
 
 
-def _v3_npz_state(tmp_path):
-    """A dense .npz snapshot of grammar version 3 (gradient-enhanced)."""
-    p = str(tmp_path / "v3.npz")
-    np.savez(p, magic=np.array(["MADAIEMULATOR_TPU_SNAPSHOT"]),
-             version=np.array([3]))
+def _mf_npz_state(tmp_path):
+    """A multi-fidelity .npz snapshot (the grammar the port does not read
+    yet)."""
+    p = str(tmp_path / "mf.npz")
+    np.savez(p, magic=np.array(["MADAIEMULATOR_TPU_SNAPSHOT_MF"]),
+             version=np.array([1]))
     return p
 
 
@@ -423,17 +432,9 @@ UNPORTED = {
                                "--fit_method", "iterative"],
     "inducing": lambda tmp: ["estimate_thetas", SIN1D, "s.txt",
                              "--inducing", "8"],
-    "noise_file": lambda tmp: ["estimate_thetas", SIN1D, "s.txt",
-                               "--noise_file", "noise.txt"],
-    "gradients_file": lambda tmp: ["estimate_thetas", SIN1D, "s.txt",
-                                   "--gradients_file", "grads.txt"],
-    "update_precision_default": lambda tmp: [
-        "estimate_thetas", SIN1D, "s.txt", "--update_precision", "default"],
-    "update_precision_high": lambda tmp: [
-        "estimate_thetas", SIN1D, "s.txt", "--update_precision", "high"],
     "cholesky_blocked": lambda tmp: ["estimate_thetas", SIN1D, "s.txt",
                                      "--cholesky_method", "blocked"],
-    "npz_state": lambda tmp: ["print_thetas", _v3_npz_state(tmp)],
+    "npz_state": lambda tmp: ["print_thetas", _mf_npz_state(tmp)],
     "multifidelity": lambda tmp: ["estimate_thetas", _mf_file(tmp), "s.txt"],
     "print_thetas_sgpr": lambda tmp: ["print_thetas", _sgpr_state(tmp)],
     "convert_sgpr": lambda tmp: ["convert", _sgpr_state(tmp), "o.txt"],

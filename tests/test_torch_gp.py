@@ -275,8 +275,10 @@ def test_query_chunking_is_exact():
 
 
 def test_unported_data_fields_raise():
+    """h_extra is not yet ported; dY is (tests/test_torch_gradients.py) and
+    on a once-differentiable kernel raises the JAX package's ValueError."""
     _, ct, _, pt, _, dt = _states("matern32", torch.float64)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="twice differentiable"):
         tgp._factor(dt._replace(dY=dt.X), pt, ct)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tgp.training_basis(dt._replace(h_extra=dt.X), ct)

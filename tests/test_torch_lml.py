@@ -58,12 +58,12 @@ def test_left_cholesky_k3_batched_and_non_spd():
 
 @pytest.mark.parametrize("diag,dtype,tol", [("xla", np.float64, 1e-12),
                                             ("pallas", np.float32, 1e-5)])
-def test_left_cholesky_history_in_k_chunks(monkeypatch, diag, dtype, tol):
-    """The history product summed in k-chunks (96 columns here, so the last
-    chunk of a panel is partial) on a batch of two: each member against the
-    JAX left_cholesky of the same matrix (float64: both library panels;
+def test_left_cholesky_history_in_k_chunks(diag, dtype, tol):
+    """The history product of every panel (at float32 and the "highest"
+    tier formed in float64 and rounded once, which replaced the k-chunked
+    float32 sum) on a batch of two: each member against the JAX
+    left_cholesky of the same matrix (float64: both library panels;
     float32: the plain K3 against a float64 factor)."""
-    monkeypatch.setattr(tl, "HISTORY_K_CHUNK", 96)
     A = np.stack([_spd(4, 384), _spd(5, 384)]).astype(dtype)
     got = tl.left_cholesky(torch.from_numpy(A), block=64, diag=diag)
     for i in range(2):

@@ -106,7 +106,6 @@ def test_noise_snapshot_v2_cross_reads(tmp_path):
 
 
 @pytest.mark.parametrize("head,what", [
-    ("MADAIEMULATOR_TPU_SNAPSHOT 3\n", "version 3"),
     ("MADAIEMULATOR_TPU_SNAPSHOT_MF 1\n", "multi-fidelity"),
     ("MADAIEMULATOR_TPU_SNAPSHOT_SGPR 1\n", "sparse"),
 ])
@@ -243,10 +242,10 @@ def test_cli_errors_exit_2(monkeypatch, capsys, tmp_path):
         assert rc == 2
         assert out.err.strip() == "error: CUDA device not available"
         assert out.out == ""
-    v3 = tmp_path / "v3.txt"
-    v3.write_text("MADAIEMULATOR_TPU_SNAPSHOT 3\n")
+    mf = tmp_path / "mf.txt"
+    mf.write_text("MADAIEMULATOR_TPU_SNAPSHOT_MF 1\n")
     rc, out = _serve_in_process(monkeypatch, capsys, "",
-                                [str(v3), "--device", "cpu"])
+                                [str(mf), "--device", "cpu"])
     assert rc == 2 and "not yet ported" in out.err
 
 

@@ -178,7 +178,6 @@ def _npz_grammar(tmp_path, what):
     magic, version = {
         "multi-fidelity": ("MADAIEMULATOR_TPU_SNAPSHOT_MF", 1),
         "sparse": ("MADAIEMULATOR_TPU_SNAPSHOT_SGPR", 1),
-        "version 3": ("MADAIEMULATOR_TPU_SNAPSHOT", 3),
     }[what]
     p = str(tmp_path / "state.npz")
     np.savez(p, magic=np.array([magic]), version=np.array([version]))
@@ -187,7 +186,7 @@ def _npz_grammar(tmp_path, what):
 
 @pytest.mark.parametrize("command", ["print_thetas", "interactive_mode",
                                      "convert"])
-@pytest.mark.parametrize("what", ["multi-fidelity", "sparse", "version 3"])
+@pytest.mark.parametrize("what", ["multi-fidelity", "sparse"])
 def test_unported_npz_grammars_exit_2(tmp_path, capsys, command, what):
     state = _npz_grammar(tmp_path, what)
     argv = {"print_thetas": [state],
