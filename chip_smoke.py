@@ -84,21 +84,39 @@ It imports no jax. Phases, in order; any failure exits non-zero:
                v3 snapshot served at float32 against float64; the CLI
                (estimate_thetas --noise_file --gradients_file, then
                interactive_mode on the version-3 snapshot).
+ 10. iterative — the matrix-free GP (models/iterative.py) at
+               bench/capability_64k.py's full width: N=65,536 in d=8,
+               float32, y = a smooth truth + 0.05 noise, rank 64, 8 probes,
+               mBCG, cg_tol 1e-4, 200 iterations, row chunk 2,048. K1 at
+               the path's shapes ((1,2048,65536) tiles, (1,65536,1) pivot
+               columns, (1,65536,256) serve chunks) against its plain
+               version, timed beside the library composite; the main path
+               (one value+grad at amp 1, nugget 0.1, ls 0.35; a 1-restart
+               x 2-step fit, the bench runs 2 x 12; the serving cache;
+               2,048 "precond" and 64 "exact" variances); the float32
+               value+grad against float64 with the same probes; the served
+               mean's rmse against the truth; "precond" <= "exact" where
+               P's ridge is the plain diagonal; the matvec's and the
+               value+grad's profiles; the CLI (estimate_thetas
+               --fit_method=iterative at config 3's recipe, N=2,048 ->
+               interactive_mode --serve_method=iterative over the pipe).
 
 The launch counters are set to 0 just before each main path (phase 5's
 serve, phase 6's value+grad -> fit -> serve, phase 7's fit_multivariate,
 phase 8's fit_ensemble -> predict_ensemble, and the new paths: phase 5's
-fast serve, phase 6's fast serve and tier runs, phase 9's fit -> serve)
-and read just after it. Phase 5 fails if a kernel of its path never
-launched, and requires K1 = 2 and K2 = 1 on its fast path; phase 6 requires K3 to launch
+fast serve, phase 6's fast serve and tier runs, phase 9's fit -> serve,
+phase 10's value+grad -> fit -> serve) and read just after it. Phase 5
+fails if a kernel of its path never launched, and requires K1 = 2 and K2 =
+1 on its fast path; phase 6 requires K3 to launch
 exactly once per diagonal panel of every factorization the path makes, and
 K1 once per Gram and per query chunk; phase 7 requires K1 and K2 to launch
 exactly once per objective evaluation the fit reports, plus once each for
 the serve precompute; phase 8 likewise, plus two K1 (Gram, cross) and one
 K2 for predict_ensemble; phase 9 requires K1 = K2 = 0 (the joint Gram and
 its cross covariances are library math, as in the JAX package) and K3 =
-7 panels x (objective evaluations + 1). Before the last line it prints one
-JSON line with
+7 panels x (objective evaluations + 1); phase 10 requires K1 > 0 and K2 =
+K3 = 0 (its only factorization, the 64 x 64 Woodbury capacitance, is
+library math). Before the last line it prints one JSON line with
 each kernel's launches (`launches_by_path`: each path's own count;
 `launches`: config 5's where that path runs the kernel, else config 3's
 fit's, else config 4's, else the serve path's), its error against the plain
@@ -106,8 +124,9 @@ version (the largest over the shapes checked), its time, the plain
 version's, the library call's (null where no single PyTorch call computes
 the function) and its bound (K2 also its error, time and cluster size at
 config 3's lane batch, `fit_batch`; K1 and K2 their config-5 shapes,
-`config5`; K3 its gradient path's lane batch, `gradient_batch`); the last
-line is {"ok": true, "device": ...}.
+`config5`; K3 its gradient path's lane batch, `gradient_batch`; K1 the
+matrix-free path's shapes, `iterative`); the last line is {"ok": true,
+"device": ...}.
 """
 
 from __future__ import annotations
@@ -116,6 +135,7 @@ import argparse
 import collections
 import dataclasses
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -244,6 +264,36 @@ G_LL_RTOL = 1e-2
 # both): means over their scale, measured 8.4e-4 (values) and 5.2e-4
 # (gradients); variances over their prior variance, 1.1e-6 and 8.6e-6.
 G_SERVE_MEAN_TOL, G_SERVE_VAR_TOL = 2.5e-3, 1e-4
+# The matrix-free path (phase 10): bench/capability_64k.py's data recipe at
+# full width, N=65,536 points in d=8, y = truth + I_NOISE noise, float32;
+# its rank, probes, Lanczos length, CG tolerance and budget, row chunk and
+# mBCG logdet; the check theta of bench/bench_iterative.py:37-45 (amp 1,
+# nugget 0.1, length scales 0.35); the fit at I_R restarts x I_STEPS steps
+# (the bench runs 2 x 12: cut in depth; 3 steps took 39 s and the phase
+# 259 s, so the steps were cut to 2); I_M queries served with "precond"
+# variances in chunks of I_QC, the first I_M_EXACT also with "exact" ones.
+# The CLI runs config 3's data recipe at N=I_CLI_N.
+I_N, I_D, I_NOISE = 65536, 8, 0.05
+I_RANK, I_PROBES, I_LANCZOS, I_ROW_CHUNK = 64, 8, 20, 2048
+I_TOL, I_ITERS, I_SERVE_TOL = 1e-4, 200, 1e-5
+I_AMP, I_NUGGET, I_LS = 1.0, 0.1, 0.35
+I_R, I_STEPS = 1, 2
+I_M, I_M_EXACT, I_QC = 2048, 64, 256
+I_CLI_N = 2048
+# K1 at the path's shapes: a row-chunk tile of the matvec, a pivot column,
+# a serving cross-covariance chunk (batch, rows, columns), all at d = 8.
+I_K1_SHAPES = ((1, I_ROW_CHUNK, I_N), (1, I_N, 1), (1, I_N, I_QC))
+# Gates, each set from the readings beside it (NVIDIA H100 80GB HBM3, 700
+# W). The float32 value+grad against float64 at the check theta, the same
+# probes and jitter floor: both solves stop at the 200-iteration cap
+# (float32 residual 4.4e-4), and the LML, ~570 nats after cancelling terms
+# of ~1e5, differs by 7.8 nats, 1.2e-4 nats a point: the gate is 1e-3 nats
+# a point. The gradient differs by 6.9e-6 x max|g64|: the gate is 1e-4.
+I_LL_PER_POINT, I_GRAD_RTOL = 1e-3, 1e-4
+# The served mean after the fit against the noiseless truth: measured rmse
+# 0.0443 under the 0.05 noise floor after 3 steps; the gate is 1.5 x the
+# noise floor.
+I_RMSE_MAX = 1.5 * I_NOISE
 # The update-tier table: left_cholesky on float32 SPD matrices of size
 # TIER_N at these condition numbers (the last, 1e7, near float32's 1/eps),
 # each tier against the float64 factor of the same matrix; TIER_GATE is the
@@ -1041,15 +1091,18 @@ def phase_slice(dev, rng, smi) -> tuple:
 
 
 def profile_once(what: str, fn, wall_ms: float, smi: str,
-                 top: int = 8, cell: str = "config4") -> None:
-    """Run fn() once under torch.profiler; print the device time of its
-    kernels, their count, the busy share (device time over `wall_ms`, the
-    call's wall time measured without the profiler) and the kernels that
-    take the most device time."""
+                 top: int = 8, cell: str = "config4",
+                 warm: bool = True) -> None:
+    """Run fn() once under torch.profiler (after one unprofiled call unless
+    warm is False: the caller has just run it); print the device time of
+    its kernels, their count, the busy share (device time over `wall_ms`,
+    the call's wall time measured without the profiler) and the kernels
+    that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2362,8 +2415,9 @@ def phase_gradient(dev, seed: int, smi: str) -> tuple:
         # the float32 read serves as a user would (its jitter floor is
         # jit32); the float64 one gets the same floor, the same function
         e32, _, _ = read_snapshot(state, device=dev, dtype=torch.float32)
-        e64, _, _ = read_snapshot(state, device=dev, dtype=torch.float64,
-                                  build_states=False)
+        # a v3 snapshot has no stateless (matrix-free) form: read it dense
+        # at float64, then rebuild the states with the float32 floor
+        e64, _, _ = read_snapshot(state, device=dev, dtype=torch.float64)
         e64 = e64._replace(config=dataclasses.replace(e64.config,
                                                       jitter=jit32))
         e64 = e64._replace(states=_vmapped_states(
@@ -2439,6 +2493,340 @@ def phase_gradient(dev, seed: int, smi: str) -> tuple:
     return launches, k3_grad
 
 
+def _truth64k(A):
+    """bench/capability_64k.py's noiseless truth."""
+    return np.sin(3 * A[:, 0]) + A[:, 1] ** 2 + 0.5 * np.cos(2 * A[:, 2])
+
+
+def _iter_k1_checks(dev, X, smi) -> tuple:
+    """K1 at the matrix-free path's own shapes (I_K1_SHAPES) on its own
+    points scaled by the check length scale, against the plain version;
+    kernel, plain and library-composite times and the bound. Returns
+    (largest error, {label: reading})."""
+    from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
+
+    fam = "power_exponential"
+    U_all = (X / I_LS)[None].contiguous()  # (1, N, d)
+    amp = torch.full((1,), I_AMP, device=dev)
+    err_max, by_shape = 0.0, {}
+    for B, n1, n2 in I_K1_SHAPES:
+        U = U_all[:, :n1].contiguous()
+        V = U_all[:, n1 - n2:n1].contiguous() if n2 < n1 else U_all
+
+        def kern(U=U, V=V):
+            return k1.pairwise_covariance(U, V, amp, None, fam)
+
+        def plain(U=U, V=V):
+            return k1.pairwise_covariance_plain(U, V, amp, None, fam)
+
+        got = kern()
+        err = (got - plain()).abs().max().item()
+        torch.cuda.synchronize()
+        label = f"cross({B},{n1},{n2})d{I_D}"
+        require(got.shape == (B, n1, n2) and err <= K1_ATOL,
+                f"K1 {label} err {err:.3g} > {K1_ATOL}")
+        del got
+        big = n1 * n2 > K1_FULL_CHECK_MAX
+        t = {"ms": cuda_ms(kern, iters=10 if big else 50),
+             "graph_ms": None if big else graph_ms(kern),
+             "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+             "composite_ms": cuda_ms(
+                 lambda U=U, V=V: _k1_composite(U, V, amp, None, False),
+                 iters=10)}
+        t["bound_ms"], t["bound_by"] = bound_ms(
+            4 * (B * (n1 + n2) * I_D + B + B * n1 * n2),
+            B * n1 * n2 * (3 * I_D + 3))
+        t["max_abs_err"] = err
+        by_shape[label] = t
+        err_max = max(err_max, err)
+        dev_ms = t["graph_ms"] or t["ms"]
+        print(f"iterative K1 {label}: max_abs_err vs plain {err:.3g} <= "
+              f"{K1_ATOL}; kernel {t['ms']:.4f} ms"
+              f"{'' if t['graph_ms'] is None else ' (device, CUDA graph: %.4f ms)' % t['graph_ms']}"
+              f", plain {t['plain_ms']:.4f} ms, library composite "
+              f"{t['composite_ms']:.4f} ms, bound {t['bound_ms']:.4g} ms "
+              f"({t['bound_by']}): {t['bound_ms'] / dev_ms:.2f} of the "
+              f"bound ({smi})")
+        torch.cuda.empty_cache()
+    return err_max, by_shape
+
+
+def phase_iterative(dev, seed: int, smi: str) -> tuple:
+    """The matrix-free GP (models/iterative.py) at bench/capability_64k.py's
+    full width: N=65,536 in d=8, float32, rank 64, 8 probes, mBCG, row
+    chunk 2,048. K1 at the path's shapes against its plain version; the
+    main path with the launch counts set to 0 just before and read just
+    after: one value+grad at the check theta, a fit (I_R x I_STEPS), the
+    serving cache and I_M queries ("precond") plus I_M_EXACT ("exact"); the
+    float32 value+grad against float64 with the same probes; the served mean
+    against the truth; "precond" <= "exact" where P's ridge is the plain
+    diagonal; the CLI (estimate_thetas --fit_method=iterative ->
+    interactive_mode --serve_method=iterative) at N=I_CLI_N. Every check is
+    made and printed; the phase fails at its end if any did not pass."""
+    from madaiemulator_tpu_torch.io.modelfile import write_model_file
+    from madaiemulator_tpu_torch.io.snapshot import read_snapshot
+    from madaiemulator_tpu_torch.models import iterative
+    from madaiemulator_tpu_torch.models.gp import GPData
+    from madaiemulator_tpu_torch.models.multivariate import (
+        precompute_iterative_multivariate,
+        predict_multivariate_iterative,
+    )
+    from madaiemulator_tpu_torch.ops import kernels
+    from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
+    from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
+    from madaiemulator_tpu_torch.ops.hopper import panel as k3
+    from madaiemulator_tpu_torch.utils.config import GPConfig
+
+    t_phase = time.perf_counter()
+    failed = []
+
+    def check(ok: bool, what: str) -> None:
+        print(f"iterative check {'ok' if ok else 'FAILED'}: {what}")
+        if not ok:
+            failed.append(what)
+
+    rng = np.random.default_rng([seed, 10])
+    Xh = rng.uniform(size=(I_N, I_D)).astype(np.float32)
+    yh = (_truth64k(Xh) + I_NOISE * rng.standard_normal(I_N)).astype(
+        np.float32)
+    Xq = rng.uniform(size=(I_M, I_D)).astype(np.float32)
+    data = GPData(X=torch.tensor(Xh, device=dev), y=torch.tensor(yh,
+                                                                 device=dev))
+    queries = torch.tensor(Xq, device=dev)
+    cfg = GPConfig(nparams=I_D, regression_order=1, n_restarts=I_R,
+                   max_opt_steps=I_STEPS)
+    theta = kernels.GPParams(
+        log_amp=torch.tensor(math.log(I_AMP), device=dev),
+        log_nugget=torch.tensor(math.log(I_NUGGET), device=dev),
+        log_ls=torch.full((I_D,), math.log(I_LS), device=dev))
+    kw = dict(seed=0, rank=I_RANK, probes=I_PROBES, lanczos_iters=I_LANCZOS,
+              cg_tol=I_TOL, cg_max_iters=I_ITERS, logdet_method="mbcg",
+              row_chunk=I_ROW_CHUNK)
+
+    k1_err, k1_shapes = _iter_k1_checks(dev, data.X, smi)
+
+    def value_and_grad(params, d=data, config=cfg):
+        leaves = [t.detach().clone().requires_grad_(True) for t in params]
+        ll = iterative.lml_iterative(kernels.GPParams(*leaves), d, config,
+                                     **kw)
+        grads = torch.autograd.grad(ll, leaves)
+        return ll.detach(), grads
+
+    # the main path, the counts set to 0 just before and read just after
+    k1.launches = k2.launches = k3.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ll32, g32 = value_and_grad(theta)
+    torch.cuda.synchronize()
+    vg_wall = time.perf_counter() - t0
+    vg_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    vg_k1 = k1.launches
+    t0 = time.perf_counter()
+    res = iterative.fit_gp_iterative(
+        torch.Generator().manual_seed(seed), data, cfg, vg_batch=1,
+        value_linesearch=True, **kw)
+    torch.cuda.synchronize()
+    fit_wall = time.perf_counter() - t0
+    fit_k1 = k1.launches - vg_k1
+    t0 = time.perf_counter()
+    state = iterative.precompute_iterative_predictor(
+        res.params, data, cfg, rank=I_RANK, cg_tol=I_SERVE_TOL,
+        cg_max_iters=I_ITERS, row_chunk=I_ROW_CHUNK)
+    torch.cuda.synchronize()
+    pre_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mean, var = iterative.predict_iterative_from_state(
+        state, data, queries, query_chunk=I_QC, variance_method="precond",
+        row_chunk=I_ROW_CHUNK)
+    torch.cuda.synchronize()
+    pred_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mean_e, var_e = iterative.predict_iterative_from_state(
+        state, data, queries[:I_M_EXACT], query_chunk=I_M_EXACT,
+        variance_method="exact", row_chunk=I_ROW_CHUNK)
+    torch.cuda.synchronize()
+    exact_wall = time.perf_counter() - t0
+    launches = {"pairwise_covariance": k1.launches, "cholesky": k2.launches,
+                "panel_factor": k3.launches}
+    st = res.stats
+    print(f"iterative: N={I_N} d={I_D} float32, rank {I_RANK}, {I_PROBES} "
+          f"probes, mBCG, cg_tol {I_TOL}, cg_max_iters {I_ITERS}, row_chunk "
+          f"{I_ROW_CHUNK} ({smi})")
+    print(f"iterative times: value+grad {vg_wall:.3f} s wall, peak "
+          f"{vg_peak:.2f} GiB, K1 {vg_k1} launches; fit {I_R} x {I_STEPS} "
+          f"{fit_wall:.3f} s ({st['n_vg_calls']} value+grad, "
+          f"{st['n_v_calls']} value-only calls, first value+grad "
+          f"{st['first_vg_wall_s']:.3f} s, K1 {fit_k1} launches), best logL "
+          f"{res.log_likelihood.item():.6g} at amp "
+          f"{math.exp(res.params.log_amp.item()):.4g}, nugget "
+          f"{math.exp(res.params.log_nugget.item()):.4g}, ls "
+          f"{[round(v, 4) for v in torch.exp(res.params.log_ls).tolist()]}; "
+          f"precompute {pre_wall:.3f} s; predict {I_M} (precond, chunks of "
+          f"{I_QC}) {pred_wall:.3f} s = {I_M / pred_wall:.1f} pts/s; "
+          f"{I_M_EXACT} exact {exact_wall:.3f} s ({smi})")
+    check(launches["pairwise_covariance"] > 0
+          and launches["cholesky"] == launches["panel_factor"] == 0,
+          f"iterative path launches {launches}: K1 > 0, K2 = K3 = 0")
+    truth = _truth64k(Xq.astype(np.float64))
+    rmse = float(np.sqrt(np.mean((mean.double().cpu().numpy() - truth)
+                                 ** 2)))
+    check(bool(torch.isfinite(ll32)) and all(bool(torch.isfinite(g).all())
+                                             for g in g32)
+          and mean.shape == var.shape == (I_M,)
+          and bool(torch.isfinite(mean).all() & torch.isfinite(var).all()
+                   & (var >= 0).all())
+          and rmse <= I_RMSE_MAX,
+          f"value+grad finite (ll {ll32.item():.8g}); served {I_M} means "
+          f"and variances finite, variances >= 0; rmse of the mean against "
+          f"the truth {rmse:.4g} <= {I_RMSE_MAX} (noise floor {I_NOISE}); "
+          f"mean posterior sd of the {I_M_EXACT} exact variances "
+          f"{var_e.mean().sqrt().item():.4g}, of the precond ones "
+          f"{var.mean().sqrt().item():.4g}")
+    d_me = (mean_e - mean[:I_M_EXACT]).abs().max().item()
+    check(d_me <= 1e-5 * max(1.0, mean.abs().max().item()),
+          f"the exact serve's means equal the precond serve's: max diff "
+          f"{d_me:.3g}")
+
+    # the rest is outside the count: the PCG iterations of the value, the
+    # device time of a value+grad and of one matvec, the float64 reference,
+    # the bound check at the check theta, the CLI
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        _, _, _, _, info = iterative._lml_iterative_impl(
+            theta, data, cfg, iterative._IterOptions(**kw))
+    torch.cuda.synchronize()
+    print(f"iterative value only: {time.perf_counter() - t0:.3f} s wall, "
+          f"{info.cg_iters} PCG iterations of {I_ITERS} (worst solve "
+          f"residual {info.solve_rel_residual.item():.3g})")
+    profile_once("value+grad (check theta)", lambda: value_and_grad(theta),
+                 vg_wall * 1e3, smi, cell="iterative", warm=False)
+    V = torch.randn((I_N, 18), device=dev)
+    mv_ms = host_ms(lambda: iterative.gram_matvec(
+        data.X, theta, cfg, V, row_chunk=I_ROW_CHUNK), iters=5)
+    mv_bound = bound_ms(4 * (I_N * I_N + 2 * 2 * I_N * 18), 2 * I_N * I_N * 18)
+    print(f"iterative matvec (N={I_N}, 18 columns): {mv_ms:.3f} ms wall; "
+          f"its tiles written and read back bound it at "
+          f"{bound_ms(2 * 4 * I_N * I_N, 0)[0]:.3f} ms, the function at "
+          f"{mv_bound[0]:.3f} ms ({mv_bound[1]}) ({smi})")
+    profile_once("matvec (18 columns)", lambda: iterative.gram_matvec(
+        data.X, theta, cfg, V, row_chunk=I_ROW_CHUNK), mv_ms, smi,
+        cell="iterative")
+    del V
+
+    # float32 against float64, the same probes and the same jitter floor
+    jf = kernels.effective_jitter_frac(I_N, torch.float32, cfg)
+    cfg64 = dataclasses.replace(cfg, jitter=jf)
+    d64 = GPData(X=data.X.double(), y=data.y.double())
+    t0 = time.perf_counter()
+    ll64, g64 = value_and_grad(kernels.GPParams(*(t.double() for t in theta)),
+                               d64, cfg64)
+    torch.cuda.synchronize()
+    wall64 = time.perf_counter() - t0
+    dll = abs(ll32.item() - ll64.item()) / I_N
+    gv32 = torch.cat([g.double().reshape(-1) for g in g32])
+    gv64 = torch.cat([g.reshape(-1) for g in g64])
+    dg = (gv32 - gv64).abs().max().item() / gv64.abs().max().item()
+    check(dll <= I_LL_PER_POINT and dg <= I_GRAD_RTOL,
+          f"value+grad float32 vs float64 (same probes, jitter {jf:.3g} x "
+          f"amp on both; float64 {wall64:.2f} s): ll {ll32.item():.8g} vs "
+          f"{ll64.item():.8g}, {dll:.3g} nats a point <= {I_LL_PER_POINT} "
+          f"({abs(ll32.item() - ll64.item()) / abs(ll64.item()):.3g} x "
+          f"|ll64|); gradient {dg:.3g} x max|g64| <= {I_GRAD_RTOL} (g32 "
+          f"{[round(v, 3) for v in gv32.tolist()]}, g64 "
+          f"{[round(v, 3) for v in gv64.tolist()]})")
+    del d64
+
+    # "precond" is a lower bound of "exact" where P's ridge is the plain
+    # nugget + jitter diagonal: at the fitted thetas (the main path's
+    # serves), or, when the conditioning floor raised the ridge there, at
+    # the check theta
+    for what, params in (("fitted", res.params), ("check theta", theta)):
+        da = iterative._diag_add(I_N, params, cfg, torch.float32)
+        if what == "fitted":
+            st_b, vp, ve = state, var[:I_M_EXACT], var_e
+        else:
+            st_b = iterative.precompute_iterative_predictor(
+                params, data, cfg, rank=I_RANK, cg_tol=I_SERVE_TOL,
+                cg_max_iters=I_ITERS, row_chunk=I_ROW_CHUNK)
+            q = queries[:I_M_EXACT]
+            _, vp = iterative.predict_iterative_from_state(
+                st_b, data, q, query_chunk=I_QC, variance_method="precond",
+                row_chunk=I_ROW_CHUNK)
+            _, ve = iterative.predict_iterative_from_state(
+                st_b, data, q, query_chunk=I_M_EXACT,
+                variance_method="exact", row_chunk=I_ROW_CHUNK)
+        over = (vp - ve).max().item()
+        msg = (f"{what}: P's ridge {st_b.pre.sigma2.item():.4g}, nugget + "
+               f"jitter {da.item():.4g}; precond - exact variance max "
+               f"{over:.3g}, mean precond / exact "
+               f"{(vp.mean() / ve.mean()).item():.4f}")
+        if bool(st_b.pre.sigma2 == da):
+            check(over <= 1e-6 * ve.abs().max().item(),
+                  f"precond <= exact on {I_M_EXACT} queries at the {msg}")
+            break
+        print(f"iterative: the conditioning floor raised P's ridge at the "
+              f"{msg} (no bound there)")
+    del state, st_b
+
+    # the CLI at config 3's recipe, N=I_CLI_N: estimate_thetas
+    # --fit_method=iterative -> snapshot -> interactive_mode
+    # --serve_method=iterative over the pipe, against in-process serving
+    crng = np.random.default_rng([seed, 11])
+    X3, Y3 = _heavy_ion_like(crng, I_CLI_N, C3_D, C3_T)
+    q3 = crng.uniform(size=(64, C3_D))
+    with tempfile.TemporaryDirectory() as tmp:
+        model = str(pathlib.Path(tmp) / "model.txt")
+        write_model_file(model, X3, Y3)
+        cstate = str(pathlib.Path(tmp) / "iter_state.txt")
+        t0 = time.perf_counter()
+        rc, _, err = _run_cli(
+            ["estimate_thetas", model, cstate, "--dtype", "float32",
+             "--device", "cuda", "--fit_method", "iterative",
+             "--regression_order", "1", "--pca_variance", str(C3_PCA),
+             "--restarts", "1", "--steps", "2", "--rank", str(I_RANK),
+             "--probes", str(I_PROBES), "--cg_tol", str(I_TOL),
+             "--cg_max_iters", str(I_ITERS), "--logdet_method", "mbcg",
+             "--seed", str(seed)])
+        cli_wall = time.perf_counter() - t0
+        ok = rc == 0 and pathlib.Path(cstate).exists()
+        check(ok, f"CLI estimate_thetas --fit_method=iterative --dtype "
+              f"float32 at N={I_CLI_N} exit {rc} in {cli_wall:.2f} s "
+              f"(process start included); stderr: {err.strip()!r}")
+        if ok:
+            emu, pn, on = read_snapshot(cstate, device=dev,
+                                        dtype=torch.float32,
+                                        build_states=False)
+            batches = [q3[:1], q3[1:16], q3[16:]]
+            header = ([f"{C3_D}\n"] + [f"{x}\n" for x in pn]
+                      + [f"{2 * C3_T}\n"] + [f"mean_{x}\n" for x in on]
+                      + [f"variance_{x}\n" for x in on])
+            t0 = time.perf_counter()
+            served = _serve_over_pipe(cstate, batches, C3_D, C3_T, header,
+                                      extra=("--serve_method", "iterative"))
+            serve_wall = time.perf_counter() - t0
+            states = precompute_iterative_multivariate(emu)
+            want = np.concatenate(
+                [torch.cat(predict_multivariate_iterative(
+                    emu, b, states=states, query_chunk=128,
+                    variance_rhs=128), dim=1).cpu().double().numpy()
+                 for b in batches])
+            scale = np.abs(want[:, :C3_T]).max()
+            pv = np.abs(want[:, C3_T:]).max()
+            sm = np.abs(served[:, :C3_T] - want[:, :C3_T]).max() / scale
+            sv = np.abs(served[:, C3_T:] - want[:, C3_T:]).max() / pv
+            check(bool(np.isfinite(served).all()) and sm <= SERVER_TOL
+                  and sv <= SERVER_TOL,
+                  f"interactive_mode --serve_method=iterative on the CLI's "
+                  f"snapshot ({emu.n_components} components; "
+                  f"{serve_wall:.2f} s with process start) vs in-process: "
+                  f"mean {sm:.3g} x scale, var {sv:.3g} x max var <= "
+                  f"{SERVER_TOL}")
+    print(f"iterative phase wall {time.perf_counter() - t_phase:.1f} s")
+    require(not failed, f"iterative: {len(failed)} checks failed: {failed}")
+    return launches, (k1_err, k1_shapes)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2462,6 +2850,7 @@ def main() -> int:
     paths["config3_fit"], k2_fit = phase_config3(dev, args.seed, smi)
     paths["config5"], c5 = phase_config5(dev, args.seed, smi)
     paths["gradient"], k3_grad = phase_gradient(dev, args.seed, smi)
+    paths["iterative"], k1_iter = phase_iterative(dev, args.seed, smi)
     for k in kernels:
         by_path = {p: c.get(k["name"], 0) for p, c in paths.items()}
         k["launches_by_path"] = by_path
@@ -2476,6 +2865,10 @@ def main() -> int:
             err, by_shape = c5[k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], err)
             k["config5"] = by_shape
+        if k["name"] == "pairwise_covariance":
+            # the matrix-free path's tiles, pivot columns and serve chunks
+            k["max_abs_err"] = max(k["max_abs_err"], k1_iter[0])
+            k["iterative"] = k1_iter[1]
         if k["name"] == "panel_factor":
             # the gradient path's lane batch (16, 512, 512)
             k["max_abs_err"] = max(k["max_abs_err"], k3_grad["max_abs_err"])

@@ -9,9 +9,11 @@ build the per-component serve states, answer queries:
 `models.multivariate.predict_multivariate`, CLI `interactive_mode`), and the
 large-N fit and serve of one GP (BASELINE config 4: the GLS log-marginal
 likelihood with its closed-form gradient, `models.gp`; the host-loop LBFGS
-`models.fit.fit_gp_host`; `models.gp.precompute_predictor_safe`). The three
-TPU kernels on those paths are hand-written CUDA for sm_90a under
-`ops/hopper/` + `csrc/`:
+`models.fit.fit_gp_host`; `models.gp.precompute_predictor_safe`), and the
+matrix-free GP past dense device memory (`models.iterative`: PCG, SLQ /
+mBCG, the Hutchinson backward; every tile by K1). The three TPU kernels on
+those paths are hand-written CUDA for sm_90a under `ops/hopper/` +
+`csrc/`:
 
     K1  pairwise covariance   <- madaiemulator_tpu/ops/pallas/pairwise.py
     K2  batched Cholesky      <- madaiemulator_tpu/ops/pallas/cholesky.py

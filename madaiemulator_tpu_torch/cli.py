@@ -1,7 +1,7 @@
 """`interactive_emulator_torch` command-line tool (port of
-madaiemulator_tpu/cli.py: `estimate_thetas` on the dense path,
-`interactive_mode`, `print_thetas` and `convert` on the dense snapshot, as
-text or as .npz by the state file's extension).
+madaiemulator_tpu/cli.py: `estimate_thetas` on the dense and the
+matrix-free path, `interactive_mode`, `print_thetas` and `convert` on the
+dense snapshot, as text or as .npz by the state file's extension).
 
     interactive_emulator_torch estimate_thetas <model_file> <state_file>
         [--regression_order=N] [--covariance_fn=NAME] [--pca_variance=P]
@@ -11,6 +11,9 @@ text or as .npz by the state file's extension).
         [--cholesky_method=pallas|left|xla] [--gram_method=pallas|xla]
         [--update_precision=auto|default|high|highest]
         [--noise_file=PATH] [--gradients_file=PATH]
+        [--fit_method=dense|iterative] [--rank=K] [--probes=P]
+        [--lanczos_iters=M] [--cg_tol=T] [--cg_max_iters=I]
+        [--logdet_method=slq|mbcg] [--checkpoint_path=PATH] [--vg_batch=B]
 
 trains the multivariate emulator (PCA + one GP per component, every
 component x restart lane in one lock-step LBFGS batch) and writes the
@@ -19,12 +22,14 @@ trained on gradients); the flags and defaults are the JAX CLI's, except
 that --cholesky_method and --gram_method default to "pallas" (the Hopper
 kernels at float32). --noise_file holds N or N*t observation-noise
 variances; --gradients_file N*t*d output gradients w.r.t. the raw inputs
-(io/modelfile.read_gradients_file). What is not yet ported exits 2 with one
-line on stderr: --fit_method=iterative, --inducing,
---cholesky_method=blocked, the JAX CLI's matrix-free and host-fit tuning
-flags (--rank, --probes, --lanczos_iters, --cg_tol, --cg_max_iters,
---logdet_method, --checkpoint_path, --vg_batch, --inducing_opt_steps,
---row_chunk), a MULTIFIDELITY model file.
+(io/modelfile.read_gradients_file). --fit_method=iterative fits each
+component matrix-free (models/iterative.py: PCG with a rank --rank
+pivoted-Cholesky preconditioner, an SLQ or mBCG logdet over --probes
+probes, the host-loop LBFGS; --checkpoint_path writes PATH.c<i> per
+component); it takes no --gradients_file and no --alpha_grid. What is not
+yet ported exits 2 with one line on stderr: --inducing,
+--inducing_opt_steps, --row_chunk, --cholesky_method=blocked, a
+MULTIFIDELITY model file.
 
     interactive_emulator_torch print_thetas <state_file>
         prints the fitted per-component hyperparameters (natural space).
@@ -37,11 +42,18 @@ flags (--rank, --probes, --lanczos_iters, --cg_tol, --cg_max_iters,
 
     interactive_emulator_torch interactive_mode <state_file>
         [--dtype=float64|float32] [--device=cuda|cpu]
-        [--serve_method=dense|fast]
+        [--serve_method=dense|fast|iterative] [--rank=K] [--cg_tol=T]
+        [--cg_max_iters=I] [--variance_method=exact|precond]
+        [--query_chunk=Q] [--variance_rhs=V]
 
 --serve_method=fast inverts each component's factors once at start-up so
-that every query batch is GEMMs only (no triangular solves); a
-gradient-enhanced (version 3) snapshot serves dense only and exits 2 there.
+that every query batch is GEMMs only (no triangular solves);
+--serve_method=iterative builds no dense factor: it builds each
+component's preconditioner and training solves once at start-up and
+answers each batch by PCG (--variance_method=exact, in column blocks of
+--variance_rhs) or by the preconditioner's Woodbury apply ("precond"), in
+chunks of --query_chunk queries. A gradient-enhanced (version 3) snapshot
+serves dense only and exits 2 on either.
 interactive_mode reads query points (nparams whitespace-separated floats)
 on stdin until EOF
 and writes t means then t variances per query on stdout, "%.17g", flushing
@@ -68,9 +80,7 @@ from typing import List, Optional
 import numpy as np
 
 MAX_BATCH = 1024
-_UNPORTED_TUNING = ("rank", "probes", "lanczos_iters", "cg_tol",
-                    "cg_max_iters", "logdet_method", "checkpoint_path",
-                    "vg_batch", "inducing_opt_steps", "row_chunk")
+_UNPORTED_TUNING = ("inducing_opt_steps", "row_chunk")
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -92,11 +102,36 @@ def _build_parser() -> argparse.ArgumentParser:
     est.add_argument("--dtype", choices=["float64", "float32"], default="float64")
     est.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     est.add_argument("--quiet", action="store_true")
-    est.add_argument("--fit_method", choices=["dense", "iterative"],
-                     default="dense",
-                     help="'iterative' is not yet ported")
-    # the JAX CLI's matrix-free / sparse / host-fit tuning flags: nothing in
-    # this port reads them yet, so giving one exits 2
+    # matrix-free training for N past dense device memory (models/iterative)
+    est.add_argument(
+        "--fit_method", choices=["dense", "iterative"], default="dense",
+        help="'iterative': matrix-free PCG + SLQ/mBCG fitting (no N^2 "
+        "memory)",
+    )
+    est.add_argument("--rank", type=int, default=64,
+                     help="iterative: preconditioner rank")
+    est.add_argument("--probes", type=int, default=16,
+                     help="iterative: logdet / trace probe vectors")
+    est.add_argument("--lanczos_iters", type=int, default=32)
+    est.add_argument("--cg_tol", type=float, default=1e-5)
+    est.add_argument("--cg_max_iters", type=int, default=256)
+    est.add_argument(
+        "--logdet_method", choices=["slq", "mbcg"], default="slq",
+        help="iterative: 'mbcg' derives the logdet from the same CG pass "
+        "as the solves",
+    )
+    est.add_argument(
+        "--checkpoint_path", default=None, metavar="PATH",
+        help="iterative: mid-fit checkpoint/resume (.npz; one file per PCA "
+        "component, PATH.c<i>). Re-running with the same path resumes",
+    )
+    est.add_argument(
+        "--vg_batch", type=int, default=1,
+        help="iterative: restarts per objective call (evaluated one after "
+        "another)",
+    )
+    # the JAX CLI's sparse tuning flags: nothing in this port reads them
+    # yet, so giving one exits 2
     for name in _UNPORTED_TUNING:
         est.add_argument(f"--{name}", default=None, help="not yet ported")
     est.add_argument(
@@ -153,8 +188,26 @@ def _build_parser() -> argparse.ArgumentParser:
     im.add_argument("state_file")
     im.add_argument("--dtype", choices=["float64", "float32"], default="float64")
     im.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    im.add_argument("--serve_method", choices=["dense", "fast"],
-                    default="dense")
+    im.add_argument(
+        "--serve_method", choices=["dense", "fast", "iterative"],
+        default="dense",
+        help="'fast': GEMM-only serving (explicit triangular inverses); "
+        "'iterative': matrix-free serving (no dense factorization)",
+    )
+    im.add_argument("--rank", type=int, default=64)
+    im.add_argument("--cg_tol", type=float, default=1e-6)
+    im.add_argument("--cg_max_iters", type=int, default=256)
+    im.add_argument(
+        "--variance_method", choices=["exact", "precond"], default="exact",
+        help="iterative serving: 'precond' answers variances from the "
+        "preconditioner's Woodbury apply (a PCG-free lower bound)",
+    )
+    im.add_argument("--query_chunk", type=int, default=128,
+                    help="iterative serving: queries per cross-covariance "
+                    "build")
+    im.add_argument("--variance_rhs", type=int, default=128,
+                    help="iterative serving, exact variances: PCG "
+                    "right-hand sides per solve")
 
     pt = sub.add_parser("print_thetas", help="print fitted hyperparameters")
     pt.add_argument("state_file")
@@ -173,8 +226,6 @@ def _error(msg: str) -> int:
 
 def _unported_flag(args) -> Optional[str]:
     """The first flag this port cannot honour yet, as an error line."""
-    if args.fit_method == "iterative":
-        return "--fit_method=iterative is not yet ported"
     if args.inducing:
         return "--inducing (sparse SGPR) is not yet ported"
     for name in _UNPORTED_TUNING:
@@ -194,7 +245,10 @@ def cmd_estimate_thetas(args) -> int:
         read_model_file,
     )
     from madaiemulator_tpu_torch.io.snapshot import write_snapshot_auto
-    from madaiemulator_tpu_torch.models.multivariate import fit_multivariate
+    from madaiemulator_tpu_torch.models.multivariate import (
+        fit_multivariate,
+        fit_multivariate_iterative,
+    )
     from madaiemulator_tpu_torch.utils.config import (
         COVARIANCE_CLI_NAMES,
         GPConfig,
@@ -203,6 +257,13 @@ def cmd_estimate_thetas(args) -> int:
     unported = _unported_flag(args)
     if unported:
         return _error(unported)
+    if args.fit_method == "iterative" and args.gradients_file:
+        return _error("--gradients_file needs --fit_method=dense (the "
+                      "matrix-free engine has no joint value+gradient "
+                      "operator)")
+    if args.fit_method == "iterative" and args.alpha_grid:
+        return _error("--alpha_grid needs --fit_method=dense (the alpha "
+                      "profile runs the dense fit)")
     try:
         cov = COVARIANCE_CLI_NAMES[args.covariance_fn]
     except KeyError:
@@ -257,18 +318,34 @@ def cmd_estimate_thetas(args) -> int:
             cholesky_update_precision=args.update_precision,
             linesearch=args.linesearch,
         )
-        emu = fit_multivariate(
-            torch.Generator().manual_seed(args.seed),
-            torch.tensor(mf.X, dtype=dtype, device=dev),
-            torch.tensor(mf.Y, dtype=dtype, device=dev),
-            cfg,
-            pca_variance=args.pca_variance,
-            restart_chunk=args.restart_chunk,
-            alpha_grid=alpha_grid,
-            alpha_refine=args.alpha_refine,
-            noise=noise,
-            gradients=gradients,
-        )
+        X = torch.tensor(mf.X, dtype=dtype, device=dev)
+        Y = torch.tensor(mf.Y, dtype=dtype, device=dev)
+        gen = torch.Generator().manual_seed(args.seed)
+        if args.fit_method == "iterative":
+            emu = fit_multivariate_iterative(
+                gen, X, Y, cfg,
+                pca_variance=args.pca_variance,
+                rank=args.rank,
+                probes=args.probes,
+                lanczos_iters=args.lanczos_iters,
+                cg_tol=args.cg_tol,
+                cg_max_iters=args.cg_max_iters,
+                seed=args.seed,
+                vg_batch=args.vg_batch,
+                logdet_method=args.logdet_method,
+                checkpoint_path=args.checkpoint_path,
+                noise=noise,
+            )
+        else:
+            emu = fit_multivariate(
+                gen, X, Y, cfg,
+                pca_variance=args.pca_variance,
+                restart_chunk=args.restart_chunk,
+                alpha_grid=alpha_grid,
+                alpha_refine=args.alpha_refine,
+                noise=noise,
+                gradients=gradients,
+            )
     except ValueError as e:
         # e.g. --gradients_file with a once-differentiable kernel
         return _error(str(e))
@@ -293,14 +370,21 @@ def cmd_estimate_thetas(args) -> int:
 
 
 def _read_container(path: str):
-    """(emulator without serve states, param names, output names) of a
-    dense snapshot (text or .npz), on the CPU in float64."""
+    """(emulator, param names, output names) of a dense snapshot (text or
+    .npz), on the CPU in float64: the matrix-free container, which skips
+    the serve-time factorizations, or for a gradient-enhanced (version 3)
+    snapshot, which has none, the dense emulator (joint systems are small
+    by construction), as the JAX CLI's convert does."""
     import torch
 
     from madaiemulator_tpu_torch.io.snapshot import read_snapshot_auto
 
-    return read_snapshot_auto(path, device=torch.device("cpu"),
-                              dtype=torch.float64, build_states=False)
+    cpu = torch.device("cpu")
+    try:
+        return read_snapshot_auto(path, device=cpu, dtype=torch.float64,
+                                  build_states=False)
+    except ValueError:
+        return read_snapshot_auto(path, device=cpu, dtype=torch.float64)
 
 
 def cmd_print_thetas(args) -> int:
@@ -342,23 +426,40 @@ def cmd_interactive_mode(args) -> int:
     from madaiemulator_tpu_torch.io.snapshot import read_snapshot_auto
     from madaiemulator_tpu_torch.models.multivariate import (
         precompute_fast_multivariate,
+        precompute_iterative_multivariate,
         predict_multivariate,
         predict_multivariate_fast,
+        predict_multivariate_iterative,
     )
 
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: CUDA device not available", file=sys.stderr)
         return 2
     dtype = torch.float64 if args.dtype == "float64" else torch.float32
+    iterative = args.serve_method == "iterative"
     try:
         emu, param_names, output_names = read_snapshot_auto(
-            args.state_file, device=torch.device(args.device), dtype=dtype
+            args.state_file, device=torch.device(args.device), dtype=dtype,
+            build_states=not iterative,
         )
     except ValueError as e:
+        # e.g. a gradient-enhanced (v3) snapshot asked to serve iteratively
         print(f"error: {e}", file=sys.stderr)
         return 2
     predict = predict_multivariate
-    if args.serve_method == "fast":
+    if iterative:
+        # the serving cache (preconditioners + training solves), built once
+        iter_states = precompute_iterative_multivariate(
+            emu, rank=args.rank, cg_tol=args.cg_tol,
+            cg_max_iters=args.cg_max_iters)
+
+        def predict(e, q):
+            return predict_multivariate_iterative(
+                e, q, states=iter_states,
+                variance_method=args.variance_method,
+                query_chunk=args.query_chunk,
+                variance_rhs=args.variance_rhs)
+    elif args.serve_method == "fast":
         try:
             fast_states = precompute_fast_multivariate(emu)
         except ValueError as e:

@@ -65,8 +65,14 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _gradients(emu):
+    """(dZ, dZ_noise) of a dense emulator; the matrix-free
+    IterativeMultivariateEmulator has neither."""
+    return getattr(emu, "dZ", None), getattr(emu, "dZ_noise", None)
+
+
 def _version(emu: MultivariateEmulator) -> int:
-    if emu.dZ is not None:
+    if _gradients(emu)[0] is not None:
         return VERSION_GRADIENTS
     return VERSION if emu.noise is None else VERSION_NOISE
 
@@ -104,6 +110,7 @@ def write_snapshot(
     )  # (r, ntheta), natural space, reference layout
     w = dest.write
     version = _version(emu)
+    dZ, dZ_noise = _gradients(emu)
     w(f"{MAGIC} {version}\n")
     w(f"covariance {cfg.covariance.value}\n")
     w(f"power_exp_alpha {cfg.power_exp_alpha:.17g}\n")
@@ -112,8 +119,8 @@ def write_snapshot(
     w(f"pca_standardize {int(pca_standardize)}\n")
     if version == VERSION_GRADIENTS:
         w(f"has_noise {int(emu.noise is not None)}\n")
-        w(f"has_gradients {int(emu.dZ is not None)}\n")
-        w(f"has_gradient_noise {int(emu.dZ_noise is not None)}\n")
+        w(f"has_gradients {int(dZ is not None)}\n")
+        w(f"has_gradient_noise {int(dZ_noise is not None)}\n")
     w(f"nparams {d}\nnoutputs {t}\nnpoints {n}\nncomponents {r}\n")
     for s in param_names + output_names:
         w(f"{s}\n")
@@ -134,12 +141,12 @@ def write_snapshot(
     if emu.noise is not None:
         w("# per-point PC-space observation-noise variances (n x r)\n")
         w(_fmt_mat(_np(emu.noise)) + "\n")
-    if emu.dZ is not None:
+    if dZ is not None:
         w("# PC-space gradient observations ((n*d) x r, point-major)\n")
-        w(_fmt_mat(_np(emu.dZ).reshape(n * d, r)) + "\n")
-    if emu.dZ_noise is not None:
+        w(_fmt_mat(_np(dZ).reshape(n * d, r)) + "\n")
+    if dZ_noise is not None:
         w("# PC-space gradient-noise variances ((n*d) x r, point-major)\n")
-        w(_fmt_mat(_np(emu.dZ_noise).reshape(n * d, r)) + "\n")
+        w(_fmt_mat(_np(dZ_noise).reshape(n * d, r)) + "\n")
 
 
 class _Tokens:
@@ -181,10 +188,12 @@ def read_snapshot(
     build_states: bool = True,
 ) -> Tuple[MultivariateEmulator, List[str], List[str]]:
     """Load a snapshot and rebuild the per-component serve states on
-    `device` (the serve-time precompute; skipped when build_states is
-    False). Returns (emulator, param_names, output_names). The config uses
-    the port's defaults, so at float32 the serve path runs on the Hopper
-    kernels."""
+    `device` (the serve-time precompute). build_states=False skips the
+    dense factorizations and returns an `IterativeMultivariateEmulator`
+    (matrix-free serving, re-encoding, printing); a gradient-enhanced
+    (version 3) snapshot then raises ValueError. Returns (emulator,
+    param_names, output_names). The config uses the port's defaults, so at
+    float32 the serve path runs on the Hopper kernels."""
     if isinstance(source, str):
         if source.endswith(".npz"):
             raise ValueError("an .npz snapshot: use read_snapshot_npz or "
@@ -261,9 +270,9 @@ def write_snapshot_npz(
     d = emu.X.shape[1]
     t = emu.n_outputs
     cfg = emu.config
-    extra = {key: _np(a) for key, a in (("noise_pc", emu.noise),
-                                        ("dZ_pc", emu.dZ),
-                                        ("dZ_noise_pc", emu.dZ_noise))
+    extra = {key: _np(a) for key, a in zip(("noise_pc", "dZ_pc",
+                                            "dZ_noise_pc"),
+                                           (emu.noise, *_gradients(emu)))
              if a is not None}
     np.savez_compressed(
         dest,
@@ -302,8 +311,9 @@ def read_snapshot_npz(
     build_states: bool = True,
 ) -> Tuple[MultivariateEmulator, List[str], List[str]]:
     """Load an .npz snapshot as `read_snapshot` loads a text one: the serve
-    states rebuilt on `device` unless build_states is False. Returns
-    (emulator, param_names, output_names)."""
+    states rebuilt on `device`, or with build_states=False the matrix-free
+    `IterativeMultivariateEmulator`. Returns (emulator, param_names,
+    output_names)."""
     with np.load(source, allow_pickle=False) as z:
         magic = str(z["magic"][0])
         if magic in _OTHER_MAGICS:

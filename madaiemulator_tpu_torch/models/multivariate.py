@@ -5,8 +5,11 @@ rest serves.
 The r component GPs share the scaled design X and run as one batch: their
 hyperparameters, serve states and predictions carry a leading (r,) axis
 (JAX vmaps over it). The fit runs every (component x restart) lane in one
-lock-step LBFGS batch (`models.fit`). Prediction rotates the per-component
-(mean, variance) back to the t observables:
+lock-step LBFGS batch (`models.fit`). The matrix-free twin,
+`IterativeMultivariateEmulator` (`fit_multivariate_iterative`,
+`predict_multivariate_iterative`), keeps no dense state and runs each
+component through `models.iterative`, one after another. Prediction rotates
+the per-component (mean, variance) back to the t observables:
 
     mean_j = ybar_j + s_j * sum_i sqrt(lambda_i) U_ji m_i
     var_j  = s_j^2  * sum_i lambda_i  U_ji^2 v_i
@@ -16,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 from typing import Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -487,16 +491,182 @@ def fit_multivariate(
     )
 
 
+class IterativeMultivariateEmulator(NamedTuple):
+    """A trained multivariate emulator with NO dense serving state: both
+    fitting and serving run matrix-free (`models.iterative`), so memory is
+    O(N (rank + probes)) instead of r N^2. The PCA pipeline, theta layout
+    and reconstruction are `MultivariateEmulator`'s; only the per-component
+    GP engine differs. It has no gradient fields: the matrix-free engine
+    has no joint value + gradient operator."""
+
+    scaling: DesignScaling
+    X: torch.Tensor  # (N, d) scaled design
+    Z: torch.Tensor  # (N, r) PC scores
+    pca: PCAState
+    params: GPParams  # batched (r, ...) per-component hyperparameters
+    config: GPConfig
+    restart_log_likelihoods: Optional[torch.Tensor] = None  # (r, R)
+    noise: Optional[torch.Tensor] = None  # (N, r) PC-space noise variances
+
+    @property
+    def n_components(self) -> int:
+        return self.Z.shape[1]
+
+    @property
+    def n_outputs(self) -> int:
+        return self.pca.ymean.shape[0]
+
+    def component_data(self, i: int) -> GPData:
+        """GPData of component i, with its PC-space noise column."""
+        nz = None if self.noise is None else self.noise[:, i]
+        return GPData(X=self.X, y=self.Z[:, i], noise=nz)
+
+
+def fit_multivariate_iterative(
+    generator: torch.Generator,
+    X_raw: torch.Tensor,
+    Y: torch.Tensor,
+    config: GPConfig,
+    pca_variance: float = 0.95,
+    standardize: bool = True,
+    param_ranges: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    noise=None,
+    **iter_kwargs,
+) -> IterativeMultivariateEmulator:
+    """Matrix-free multivariate training (the `estimate_thetas` path past
+    dense memory). The scaling, PCA and noise projection are
+    `fit_multivariate`'s; the components are fitted one after another by
+    `models.iterative.fit_gp_iterative`, each drawing its restarts from
+    `generator` in component order (at the N where this path matters one
+    component's solves fill the card). iter_kwargs forward to
+    fit_gp_iterative (rank, probes, lanczos_iters, cg_tol, cg_max_iters,
+    seed, vg_batch, logdet_method, row_chunk, checkpoint_path: one file per
+    component, PATH.c<i>). `noise`: per-point observation-noise variances,
+    (N,) or (N, t) (`project_noise`)."""
+    from madaiemulator_tpu_torch.models.iterative import fit_gp_iterative
+
+    scaling = fit_scaling(X_raw, ranges=param_ranges)
+    X = apply_scaling(X_raw, scaling)
+    pca_np, Z_np = pca_decompose(Y.detach().cpu().numpy(), pca_variance,
+                                 standardize=standardize)
+    pca = PCAState(*(torch.as_tensor(a).to(device=X.device) for a in pca_np))
+    Z = torch.as_tensor(Z_np).to(device=X.device, dtype=X.dtype)
+    noise_pc = (None if noise is None else project_noise(
+        torch.as_tensor(noise).to(device=X.device, dtype=X.dtype), pca,
+        dtype=X.dtype))
+    r = Z.shape[1]
+    logger.info(
+        "fit_multivariate_iterative: N=%d d=%d t=%d -> r=%d components",
+        X.shape[0], X.shape[1], Y.shape[1], r,
+    )
+    ckpt = iter_kwargs.pop("checkpoint_path", None)
+    fits = []
+    for i in range(r):
+        # one checkpoint file per component: sequential fits must not
+        # resume from each other's optimizer state
+        kw = (iter_kwargs if ckpt is None
+              else {**iter_kwargs, "checkpoint_path": f"{ckpt}.c{i}"})
+        fits.append(fit_gp_iterative(
+            generator,
+            GPData(X=X, y=Z[:, i],
+                   noise=None if noise_pc is None else noise_pc[:, i]),
+            config, **kw))
+        if not math.isfinite(float(fits[-1].log_likelihood)):
+            logger.warning(
+                "fit_multivariate_iterative: component %d/%d has NO "
+                "feasible restart (best LML = -inf) — its thetas are an "
+                "unoptimized fallback and its predictions will be garbage.",
+                i, r,
+            )
+    params = GPParams(*(torch.stack(a) for a in
+                        zip(*(f.params for f in fits))))
+    return IterativeMultivariateEmulator(
+        scaling=scaling, X=X, Z=Z, pca=pca, params=params, config=config,
+        restart_log_likelihoods=torch.stack(
+            [f.restart_log_likelihoods for f in fits]),
+        noise=noise_pc,
+    )
+
+
+def precompute_iterative_multivariate(
+    emu: IterativeMultivariateEmulator,
+    rank: int = 64,
+    cg_tol: float = 1e-6,
+    cg_max_iters: int = 256,
+    jitter: Optional[float] = None,
+    row_chunk: int = 2048,
+) -> list:
+    """Per-component `IterativePosteriorState` list: the matrix-free
+    serving cache (preconditioner + training solves), built once per loaded
+    snapshot so that each query batch costs one variance solve (or a
+    Woodbury apply) a component."""
+    from madaiemulator_tpu_torch.models.iterative import (
+        precompute_iterative_predictor,
+    )
+
+    return [
+        precompute_iterative_predictor(
+            GPParams(*(a[i] for a in emu.params)), emu.component_data(i),
+            emu.config,
+            rank=rank, cg_tol=cg_tol, cg_max_iters=cg_max_iters,
+            jitter=jitter, row_chunk=row_chunk,
+        )
+        for i in range(emu.n_components)
+    ]
+
+
+def predict_multivariate_iterative(
+    emu: IterativeMultivariateEmulator,
+    Xs_raw,
+    states=None,
+    **iter_kwargs,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Matrix-free multivariate serving: (m, t) means and variances, the
+    dense path's reconstruction. Pass `states` from
+    `precompute_iterative_multivariate` to serve repeated batches without
+    re-running the training solves; without it each call precomputes
+    (one-shot use). iter_kwargs forward to
+    `models.iterative.predict_iterative` (rank, cg_tol, cg_max_iters,
+    query_chunk, jitter, variance_method, row_chunk, variance_rhs), or with
+    `states` the serving ones to `predict_iterative_from_state`."""
+    from madaiemulator_tpu_torch.models.iterative import (
+        predict_iterative,
+        predict_iterative_from_state,
+    )
+
+    Xs = _scaled_queries(emu, Xs_raw)
+    ms, vs = [], []
+    for i in range(emu.n_components):
+        d = emu.component_data(i)
+        if states is not None:
+            state_kw = {
+                k: v for k, v in iter_kwargs.items()
+                if k in ("query_chunk", "with_variance", "variance_method",
+                         "row_chunk", "variance_rhs")
+            }
+            m_i, v_i = predict_iterative_from_state(states[i], d, Xs,
+                                                    **state_kw)
+        else:
+            m_i, v_i = predict_iterative(GPParams(*(a[i] for a in emu.params)),
+                                         d, Xs, emu.config, **iter_kwargs)
+        ms.append(m_i)
+        vs.append(v_i)
+    return reconstruct_observables(torch.stack(ms), torch.stack(vs), emu.pca)
+
+
 def emulator_from_numpy(
     arrays: Mapping[str, np.ndarray],
     config: GPConfig,
     device,
     dtype: torch.dtype = torch.float64,
     build_states: bool = True,
-) -> MultivariateEmulator:
-    """Build the port's emulator from a trained state held as numpy arrays,
-    rebuilding the serve states on `device` (states None when build_states
-    is False: the container alone, for re-encoding or printing).
+):
+    """Build the port's emulator from a trained state held as numpy arrays:
+    a `MultivariateEmulator` with its serve states rebuilt on `device`, or,
+    when build_states is False, an `IterativeMultivariateEmulator` (no
+    dense factorization: matrix-free serving, re-encoding, printing). A
+    gradient-enhanced state (dZ) has no matrix-free form and raises
+    ValueError there.
 
     Keys (the leaves of a JAX `MultivariateEmulator`): mins, ranges (d,);
     X (N, d) scaled design; Z (N, r); ymean, ystd (t,); eigenvalues (r,);
@@ -515,10 +685,20 @@ def emulator_from_numpy(
     X, Z = t("X"), t("Z")
     noise, dZ, dZ_noise = (t(k) if arrays.get(k) is not None else None
                            for k in ("noise", "dZ", "dZ_noise"))
-    states = (_vmapped_states(params, X, Z, config, noise_pc=noise, dZ=dZ,
-                              dZ_noise=dZ_noise)
-              if build_states else None)
+    if not build_states:
+        if dZ is not None:
+            raise ValueError(
+                "gradient-enhanced snapshots serve through the dense path "
+                "only (build_states=True): the matrix-free engine has no "
+                "joint value+gradient operator"
+            )
+        return IterativeMultivariateEmulator(
+            scaling=scaling, X=X, Z=Z, pca=pca, params=params, config=config,
+            noise=noise,
+        )
     return MultivariateEmulator(
-        scaling=scaling, X=X, Z=Z, pca=pca, params=params, states=states,
+        scaling=scaling, X=X, Z=Z, pca=pca, params=params,
+        states=_vmapped_states(params, X, Z, config, noise_pc=noise, dZ=dZ,
+                               dZ_noise=dZ_noise),
         config=config, noise=noise, dZ=dZ, dZ_noise=dZ_noise,
     )
