@@ -100,12 +100,38 @@ It imports no jax. Phases, in order; any failure exits non-zero:
                value+grad's profiles; the CLI (estimate_thetas
                --fit_method=iterative at config 3's recipe, N=2,048 ->
                interactive_mode --serve_method=iterative over the pipe).
+ 11. sparse  — SGPR (models/sparse.py) at bench/capability_1m.py's full
+               width: N=1,000,000 in d=4 drawn on the card, float32, m=512
+               greedy-maximin inducing points, row chunks of 65,536 (each
+               checkpointed); K1 at the path's shapes ((1,512,65536),
+               (1,512,512), (1,512,4096)) against its plain version; the
+               main path (select_inducing, fit_sgpr_host 3 restarts x 12
+               steps, the bench runs 40, and 4,096 queries served) with K1
+               launched exactly as the code implies and K2 = K3 = 0; the
+               float32 ELBO value+grad against float64 with the same Z; the
+               served mean against the truth; the snapshot as text and
+               .npz read back and served; the CLI (estimate_thetas
+               --inducing at config 3's recipe, N=4,096 -> interactive_mode
+               over the pipe -> validate --model_file).
+ 12. diagnostics — models/diagnostics.py and `validate` on the card: phase
+               7's snapshot (LOO on its states, 256 joint draws at 1,024
+               queries, the covariance's diagonal against the served
+               variance), LOO at config 4's width on the K3 route, both at
+               float32 against float64; the matrix-free holdout of 128 of
+               phase 10's 65,536 points and the matrix-free covariance of 64
+               queries at its fitted thetas; K2 on config 3's state Grams
+               and K3 on config 4's first panel against their plain
+               versions; `validate` over the CLI with and without
+               --model_file and --output, and --matrix_free --holdout on
+               phase 10's N=2,048 snapshot.
 
 The launch counters are set to 0 just before each main path (phase 5's
 serve, phase 6's value+grad -> fit -> serve, phase 7's fit_multivariate,
 phase 8's fit_ensemble -> predict_ensemble, and the new paths: phase 5's
 fast serve, phase 6's fast serve and tier runs, phase 9's fit -> serve,
-phase 10's value+grad -> fit -> serve) and read just after it. Phase 5
+phase 10's value+grad -> fit -> serve, phase 11's fit -> serve, phase
+12's config 3 / config 4 / matrix-free diagnostics) and read just after
+it. Phase 5
 fails if a kernel of its path never launched, and requires K1 = 2 and K2 =
 1 on its fast path; phase 6 requires K3 to launch
 exactly once per diagonal panel of every factorization the path makes, and
@@ -116,7 +142,11 @@ K2 for predict_ensemble; phase 9 requires K1 = K2 = 0 (the joint Gram and
 its cross covariances are library math, as in the JAX package) and K3 =
 7 panels x (objective evaluations + 1); phase 10 requires K1 > 0 and K2 =
 K3 = 0 (its only factorization, the 64 x 64 Woodbury capacitance, is
-library math). Before the last line it prints one JSON line with
+library math); phase 11 requires K1 = restarts x (value+grad calls x
+(1 + 2C) + value calls x (1 + C)) + (1 + C) + 1 for C row chunks and
+K2 = K3 = 0; phase 12 requires K1 = K2 + 2 and K3 = 0 on config 3, one
+K1 and K3 once per panel on config 4, K1 > 0 and K2 = K3 = 0 on the
+matrix-free path. Before the last line it prints one JSON line with
 each kernel's launches (`launches_by_path`: each path's own count;
 `launches`: config 5's where that path runs the kernel, else config 3's
 fit's, else config 4's, else the serve path's), its error against the plain
@@ -125,7 +155,9 @@ version's, the library call's (null where no single PyTorch call computes
 the function) and its bound (K2 also its error, time and cluster size at
 config 3's lane batch, `fit_batch`; K1 and K2 their config-5 shapes,
 `config5`; K3 its gradient path's lane batch, `gradient_batch`; K1 the
-matrix-free path's shapes, `iterative`); the last line is {"ok": true,
+matrix-free path's shapes, `iterative`, and the sparse path's, `sparse`;
+K2 and K3 the diagnostics' operands, `diagnostics`); the last line is
+{"ok": true,
 "device": ...}.
 """
 
@@ -133,9 +165,11 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -294,6 +328,67 @@ I_LL_PER_POINT, I_GRAD_RTOL = 1e-3, 1e-4
 # 0.0443 under the 0.05 noise floor after 3 steps; the gate is 1.5 x the
 # noise floor.
 I_RMSE_MAX = 1.5 * I_NOISE
+# The sparse path (phase 11): bench/capability_1m.py's recipe at full width,
+# N=1,000,000 points in d=4 drawn on the card, y = sin(4 x0) + 0.5 cos(3 x1)
+# + x2 x3 + S_NOISE noise, float32; m=512 greedy-maximin inducing points,
+# row chunks of 65,536 (16 chunks, the last padded), the host-loop fit with
+# backtracking at S_R restarts x S_STEPS steps and vg_batch 1, its
+# linesearch on values as at the bench's 40 steps (cut in depth: 3 x 40
+# took 89.9 s, 274 value rounds); S_Q queries served. The float32 ELBO
+# value+grad is held against float64 (the same Z) at a well-conditioned
+# check theta. The CLI runs config 3's recipe at N=S_CLI_N with S_CLI_M
+# inducing points, at float64 (see phase_sparse).
+S_N, S_D, S_NOISE = 1_000_000, 4, 0.05
+S_M, S_ROW_CHUNK, S_R, S_STEPS, S_Q = 512, 65536, 3, 12, 4096
+S_AMP, S_NUGGET, S_LS = 1.0, 1e-2, 0.3
+# (config 3 runs 40 steps; 40 took 32-38 s with the process start on an
+# NVIDIA H100 80GB HBM3, so the CLI fit is cut to 15)
+S_CLI_N, S_CLI_M, S_CLI_ROW_CHUNK, S_CLI_STEPS = 4096, 256, 1024, 15
+# K1 at the path's shapes: a row chunk's k(Z, X_c), k(Z, Z), the serve
+# cross-covariance (batch, rows, columns), all at d = 4.
+S_K1_SHAPES = ((1, S_M, S_ROW_CHUNK), (1, S_M, S_M), (1, S_M, S_Q))
+S_RMSE_MAX = 1.5 * S_NOISE
+# The sparse snapshot read back and served: the .npz holds the float32
+# state and log-parameters exactly (its serve equal to SERVER_TOL, read 0);
+# the text grammar stores the natural-space thetas, so a log-parameter comes
+# back within an ulp of float32, and the serve's K(Z, x) through Lm^-1
+# amplifies that (read 1.6e-4 of the mean scale on an NVIDIA H100 80GB
+# HBM3, 700 W): text is held at 1e-3.
+S_TEXT_SERVE_TOL = 1e-3
+# The float32 ELBO value+grad against float64 at the check theta, the same
+# Z: the value held per point (the ELBO's quadratic term cancels sums of
+# ~1e7 nats), the gradient relative to max|g64|. Measured on an NVIDIA
+# H100 80GB HBM3 (700 W): 5.2e-4 nats a point (4.5e-4 x |ll64|; the
+# float32 summaries, as in the JAX package; a CPU run at N=20,000 reads
+# 2e-4) and 2.0e-3 x max|g64|; the gates are ~4x and 5x those.
+S_LL_PER_POINT, S_GRAD_RTOL = 2e-3, 1e-2
+# The diagnostics (phase 12): phase 7's config-3 snapshot (its CLI fit) at
+# float32 on the card: LOO, D_S joint draws at D_Q queries; config 4's
+# width (N=16,384, the K3 route) for LOO at phase 6's check theta; phase
+# 10's N=65,536 data at its fitted thetas for the matrix-free holdout of
+# D_HOLD points and the matrix-free covariance of D_COV queries.
+D_Q, D_S, D_HOLD, D_COV = 1024, 256, 128, 64
+# LOO at float32 against float64 (the float32 jitter floor on both), means
+# over the mean scale and variances over the largest float64 variance:
+# config 3 at a well-conditioned theta (amp 1, nugget 1e-2 x amp, ls 0.5;
+# at the fitted thetas the reading is printed, not gated) and config 4 at
+# phase 6's check theta.
+# Measured on an NVIDIA H100 80GB HBM3 (700 W): config 3 3.9e-6 / 3.3e-6
+# at the check theta (1.7e-3 at the fitted nuggets of ~1e-8 x amp),
+# config 4 4.2e-6 / 9.4e-6; the gates are ~10x those.
+D_C3_AMP, D_C3_NUGGET, D_C3_LS = 1.0, 1e-2, 0.5
+D_LOO_TOL, D_C4_LOO_TOL = 5e-5, 1e-4
+# The joint draws: the covariance's diagonal against the served variance
+# (the same float32 factors, another order of operations; measured 3.8e-5
+# of a prior variance of 12.3), over the prior variance; the draws' mean
+# within D_Z_MAX standard errors of the served mean at every query and
+# observable (D_Q x t values; a standard normal passes 6 with probability
+# 1 - 3e-5 at that count).
+D_DIAG_TOL, D_Z_MAX = 1e-4, 6.0
+# The matrix-free covariance's diagonal against the "exact" served variance
+# of the same queries (the same PCG on the same right-hand sides), over the
+# amplitude.
+D_ITER_DIAG_TOL = 1e-4
 # The update-tier table: left_cholesky on float32 SPD matrices of size
 # TIER_N at these condition numbers (the last, 1e7, near float32's 1/eps),
 # each tier against the float64 factor of the same matrix; TIER_GATE is the
@@ -1584,6 +1679,15 @@ def _heavy_ion_like(rng, n, d, t):
     return X, latents @ mix + 0.01 * rng.standard_normal((n, t))
 
 
+def _workdir(work):
+    """`work` (a directory that outlives the phase, so a later phase can
+    read its files) as a context, or a temporary directory."""
+    if work is None:
+        return tempfile.TemporaryDirectory()
+    pathlib.Path(work).mkdir(parents=True, exist_ok=True)
+    return contextlib.nullcontext(str(work))
+
+
 def _run_cli(args):
     proc = subprocess.run(
         [sys.executable, "-m", "madaiemulator_tpu_torch.cli"] + args,
@@ -1632,7 +1736,7 @@ def _goldens_estimate(dev) -> None:
               f"thetas' {ll_gold.tolist()} (port float64 LML)")
 
 
-def phase_config3(dev, seed: int, smi: str) -> dict:
+def phase_config3(dev, seed: int, smi: str, work=None) -> dict:
     """BASELINE config 3 at full width through estimate_thetas' path:
     model file -> scaling + PCA -> one lock-step LBFGS over (components x
     restarts) on K1 + K2 -> serve states; against a float64 fit from the
@@ -1665,7 +1769,7 @@ def phase_config3(dev, seed: int, smi: str) -> dict:
     X, Y = _heavy_ion_like(rng, C3_N, C3_D, C3_T)
     cfg = GPConfig(nparams=C3_D, regression_order=1, n_restarts=C3_R,
                    max_opt_steps=C3_STEPS)
-    with tempfile.TemporaryDirectory() as tmp:
+    with _workdir(work) as tmp:
         model = str(pathlib.Path(tmp) / "model.txt")
         write_model_file(model, X, Y)
         mf = read_model_file(model)
@@ -2498,60 +2602,35 @@ def _truth64k(A):
     return np.sin(3 * A[:, 0]) + A[:, 1] ** 2 + 0.5 * np.cos(2 * A[:, 2])
 
 
+def _iter_data(seed: int, dev):
+    """bench/capability_64k.py's data at full width (I_N points in I_D,
+    float32) and I_M queries, from numpy with [seed, 10]."""
+    from madaiemulator_tpu_torch.models.gp import GPData
+
+    rng = np.random.default_rng([seed, 10])
+    Xh = rng.uniform(size=(I_N, I_D)).astype(np.float32)
+    yh = (_truth64k(Xh) + I_NOISE * rng.standard_normal(I_N)).astype(
+        np.float32)
+    Xq = rng.uniform(size=(I_M, I_D)).astype(np.float32)
+    return (GPData(X=torch.tensor(Xh, device=dev),
+                   y=torch.tensor(yh, device=dev)),
+            torch.tensor(Xq, device=dev))
+
+
 def _iter_k1_checks(dev, X, smi) -> tuple:
     """K1 at the matrix-free path's own shapes (I_K1_SHAPES) on its own
-    points scaled by the check length scale, against the plain version;
-    kernel, plain and library-composite times and the bound. Returns
-    (largest error, {label: reading})."""
-    from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
-
-    fam = "power_exponential"
+    points scaled by the check length scale (`_k1_path_checks`)."""
     U_all = (X / I_LS)[None].contiguous()  # (1, N, d)
     amp = torch.full((1,), I_AMP, device=dev)
-    err_max, by_shape = 0.0, {}
+    pairs = []
     for B, n1, n2 in I_K1_SHAPES:
         U = U_all[:, :n1].contiguous()
         V = U_all[:, n1 - n2:n1].contiguous() if n2 < n1 else U_all
-
-        def kern(U=U, V=V):
-            return k1.pairwise_covariance(U, V, amp, None, fam)
-
-        def plain(U=U, V=V):
-            return k1.pairwise_covariance_plain(U, V, amp, None, fam)
-
-        got = kern()
-        err = (got - plain()).abs().max().item()
-        torch.cuda.synchronize()
-        label = f"cross({B},{n1},{n2})d{I_D}"
-        require(got.shape == (B, n1, n2) and err <= K1_ATOL,
-                f"K1 {label} err {err:.3g} > {K1_ATOL}")
-        del got
-        big = n1 * n2 > K1_FULL_CHECK_MAX
-        t = {"ms": cuda_ms(kern, iters=10 if big else 50),
-             "graph_ms": None if big else graph_ms(kern),
-             "plain_ms": cuda_ms(plain, iters=3, warmup=1),
-             "composite_ms": cuda_ms(
-                 lambda U=U, V=V: _k1_composite(U, V, amp, None, False),
-                 iters=10)}
-        t["bound_ms"], t["bound_by"] = bound_ms(
-            4 * (B * (n1 + n2) * I_D + B + B * n1 * n2),
-            B * n1 * n2 * (3 * I_D + 3))
-        t["max_abs_err"] = err
-        by_shape[label] = t
-        err_max = max(err_max, err)
-        dev_ms = t["graph_ms"] or t["ms"]
-        print(f"iterative K1 {label}: max_abs_err vs plain {err:.3g} <= "
-              f"{K1_ATOL}; kernel {t['ms']:.4f} ms"
-              f"{'' if t['graph_ms'] is None else ' (device, CUDA graph: %.4f ms)' % t['graph_ms']}"
-              f", plain {t['plain_ms']:.4f} ms, library composite "
-              f"{t['composite_ms']:.4f} ms, bound {t['bound_ms']:.4g} ms "
-              f"({t['bound_by']}): {t['bound_ms'] / dev_ms:.2f} of the "
-              f"bound ({smi})")
-        torch.cuda.empty_cache()
-    return err_max, by_shape
+        pairs.append((f"cross({B},{n1},{n2})d{I_D}", U, V, amp))
+    return _k1_path_checks(dev, pairs, smi, "iterative")
 
 
-def phase_iterative(dev, seed: int, smi: str) -> tuple:
+def phase_iterative(dev, seed: int, smi: str, work=None) -> tuple:
     """The matrix-free GP (models/iterative.py) at bench/capability_64k.py's
     full width: N=65,536 in d=8, float32, rank 64, 8 probes, mBCG, row
     chunk 2,048. K1 at the path's shapes against its plain version; the
@@ -2585,14 +2664,8 @@ def phase_iterative(dev, seed: int, smi: str) -> tuple:
         if not ok:
             failed.append(what)
 
-    rng = np.random.default_rng([seed, 10])
-    Xh = rng.uniform(size=(I_N, I_D)).astype(np.float32)
-    yh = (_truth64k(Xh) + I_NOISE * rng.standard_normal(I_N)).astype(
-        np.float32)
-    Xq = rng.uniform(size=(I_M, I_D)).astype(np.float32)
-    data = GPData(X=torch.tensor(Xh, device=dev), y=torch.tensor(yh,
-                                                                 device=dev))
-    queries = torch.tensor(Xq, device=dev)
+    data, queries = _iter_data(seed, dev)
+    Xq = queries.cpu().numpy()
     cfg = GPConfig(nparams=I_D, regression_order=1, n_restarts=I_R,
                    max_opt_steps=I_STEPS)
     theta = kernels.GPParams(
@@ -2775,7 +2848,7 @@ def phase_iterative(dev, seed: int, smi: str) -> tuple:
     crng = np.random.default_rng([seed, 11])
     X3, Y3 = _heavy_ion_like(crng, I_CLI_N, C3_D, C3_T)
     q3 = crng.uniform(size=(64, C3_D))
-    with tempfile.TemporaryDirectory() as tmp:
+    with _workdir(work) as tmp:
         model = str(pathlib.Path(tmp) / "model.txt")
         write_model_file(model, X3, Y3)
         cstate = str(pathlib.Path(tmp) / "iter_state.txt")
@@ -2824,7 +2897,681 @@ def phase_iterative(dev, seed: int, smi: str) -> tuple:
                   f"{SERVER_TOL}")
     print(f"iterative phase wall {time.perf_counter() - t_phase:.1f} s")
     require(not failed, f"iterative: {len(failed)} checks failed: {failed}")
+    return launches, (k1_err, k1_shapes), res.params
+
+
+def _truth1m(A):
+    """bench/capability_1m.py's noiseless truth."""
+    return (torch.sin(4.0 * A[:, 0]) + 0.5 * torch.cos(3.0 * A[:, 1])
+            + A[:, 2] * A[:, 3])
+
+
+def _k1_path_checks(dev, pairs, smi, cell) -> tuple:
+    """K1 on a path's own operands: each (label, U (1, n1, d), V (1, n2, d),
+    amp (1,)) against the plain version, with kernel, plain and
+    library-composite times and the bound. Returns (largest error,
+    {label: reading})."""
+    from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
+
+    fam = "power_exponential"
+    err_max, by_shape = 0.0, {}
+    for label, U, V, amp in pairs:
+        B, n1, d = U.shape
+        n2 = V.shape[1]
+
+        def kern(U=U, V=V, amp=amp):
+            return k1.pairwise_covariance(U, V, amp, None, fam)
+
+        def plain(U=U, V=V, amp=amp):
+            return k1.pairwise_covariance_plain(U, V, amp, None, fam)
+
+        got = kern()
+        err = (got - plain()).abs().max().item()
+        torch.cuda.synchronize()
+        require(got.shape == (B, n1, n2) and err <= K1_ATOL,
+                f"{cell} K1 {label} err {err:.3g} > {K1_ATOL}")
+        del got
+        big = n1 * n2 > K1_FULL_CHECK_MAX
+        t = {"ms": cuda_ms(kern, iters=10 if big else 50),
+             "graph_ms": None if big else graph_ms(kern),
+             "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+             "composite_ms": cuda_ms(
+                 lambda U=U, V=V, amp=amp: _k1_composite(U, V, amp, None,
+                                                         False),
+                 iters=10)}
+        t["bound_ms"], t["bound_by"] = bound_ms(
+            4 * (B * (n1 + n2) * d + B + B * n1 * n2),
+            B * n1 * n2 * (3 * d + 3))
+        t["max_abs_err"] = err
+        by_shape[label] = t
+        err_max = max(err_max, err)
+        dev_ms = t["graph_ms"] or t["ms"]
+        print(f"{cell} K1 {label}: max_abs_err vs plain {err:.3g} <= "
+              f"{K1_ATOL}; kernel {t['ms']:.4f} ms"
+              f"{'' if t['graph_ms'] is None else ' (device, CUDA graph: %.4f ms)' % t['graph_ms']}"
+              f", plain {t['plain_ms']:.4f} ms, library composite "
+              f"{t['composite_ms']:.4f} ms, bound {t['bound_ms']:.4g} ms "
+              f"({t['bound_by']}): {t['bound_ms'] / dev_ms:.2f} of the "
+              f"bound ({smi})")
+        torch.cuda.empty_cache()
+    return err_max, by_shape
+
+
+def _identity_pca_emulator(mv, scaling_d, dev, dtype, **fields):
+    """A one-output container around one GP (identity scaling and PCA), so
+    that a scalar fit writes and serves through the multivariate snapshot
+    grammars; `mv` is the container class."""
+    from madaiemulator_tpu_torch.models.multivariate import PCAState
+    from madaiemulator_tpu_torch.utils.designs import DesignScaling
+
+    z = lambda *s: torch.zeros(s, dtype=dtype, device=dev)  # noqa: E731
+    o = lambda *s: torch.ones(s, dtype=dtype, device=dev)  # noqa: E731
+    return mv(scaling=DesignScaling(mins=z(scaling_d), ranges=o(scaling_d)),
+              pca=PCAState(ymean=z(1), ystd=o(1), eigenvalues=o(1),
+                           U=o(1, 1)), **fields)
+
+
+def phase_sparse(dev, seed: int, smi: str, work) -> tuple:
+    """SGPR (models/sparse.py) at bench/capability_1m.py's full width:
+    N=1,000,000 in d=4, float32, m=512, row chunks of 65,536. K1 at the
+    path's shapes against its plain version; the main path with the launch
+    counts set to 0 just before and read just after: select_inducing, the
+    host-loop fit (S_R x S_STEPS, vg_batch 1) and S_Q queries served, with
+    K1 required to launch exactly as the code implies (per ELBO value
+    1 + C, per value+grad 1 + 2C: k(Z, Z) once, each of the C row chunks
+    once forward and once more in its checkpoint recompute; per serve
+    precompute 1 + C; per predict 1) and K2 = K3 = 0; the float32 ELBO
+    value+grad against float64 with the same Z; the served mean against
+    the truth; the snapshot (text and .npz) read back and served equal; the
+    CLI (estimate_thetas --inducing, interactive_mode, validate
+    --model_file) at config 3's recipe, N=S_CLI_N. Every check is made and
+    printed; the phase fails at its end if any did not pass."""
+    from madaiemulator_tpu_torch.io.modelfile import write_model_file
+    from madaiemulator_tpu_torch.io.snapshot import (
+        read_snapshot_auto,
+        write_snapshot_auto,
+    )
+    from madaiemulator_tpu_torch.models import sparse
+    from madaiemulator_tpu_torch.models.gp import GPData
+    from madaiemulator_tpu_torch.ops import kernels
+    from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
+    from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
+    from madaiemulator_tpu_torch.ops.hopper import panel as k3
+    from madaiemulator_tpu_torch.utils.config import GPConfig
+
+    t_phase = time.perf_counter()
+    failed = []
+
+    def check(ok: bool, what: str) -> None:
+        print(f"sparse check {'ok' if ok else 'FAILED'}: {what}")
+        if not ok:
+            failed.append(what)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.rand((S_N, S_D), generator=gen, device=dev)
+    y = _truth1m(X) + S_NOISE * torch.randn(S_N, generator=gen, device=dev)
+    Xq = torch.rand((S_Q, S_D), generator=gen, device=dev)
+    data = GPData(X=X, y=y)
+    cfg = GPConfig(nparams=S_D, regression_order=1, n_restarts=S_R,
+                   max_opt_steps=S_STEPS, linesearch="backtracking")
+    C = -(-S_N // S_ROW_CHUNK)  # row chunks, the last padded
+    print(f"sparse: N={S_N} d={S_D} float32 (drawn on the card), m={S_M}, "
+          f"row_chunk {S_ROW_CHUNK} ({C} chunks), {S_R} restarts x "
+          f"{S_STEPS} steps, backtracking, vg_batch 1 ({smi})")
+
+    # the main path, the counts set to 0 just before and read just after
+    k1.launches = k2.launches = k3.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = sparse.fit_sgpr_host(torch.Generator().manual_seed(seed), data,
+                               cfg, inducing=S_M, row_chunk=S_ROW_CHUNK,
+                               vg_batch=1, value_linesearch=True)
+    torch.cuda.synchronize()
+    fit_wall = time.perf_counter() - t0
+    fit_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    mean, var = sparse.predict_sgpr(res.state, res.params, cfg, Xq)
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    launches = {"pairwise_covariance": k1.launches, "cholesky": k2.launches,
+                "panel_factor": k3.launches}
+    st = res.stats
+    want_k1 = (S_R * (st["n_vg_calls"] * (1 + 2 * C)
+                      + st["n_v_calls"] * (1 + C)) + (1 + C) + 1)
+    print(f"sparse fit: {fit_wall:.3f} s wall ({st['n_vg_calls']} "
+          f"value+grad and {st['n_v_calls']} value-only calls over {S_R} "
+          f"restarts, first value+grad {st['first_vg_wall_s']:.3f} s, "
+          f"value+grad {st['vg_wall_s']:.3f} s, value {st['v_wall_s']:.3f} "
+          f"s), peak {fit_peak:.2f} GiB; best ELBO "
+          f"{res.elbo.item():.8g} (restarts {res.restart_elbos.tolist()}) "
+          f"at amp {math.exp(res.params.log_amp.item()):.4g}, nugget "
+          f"{math.exp(res.params.log_nugget.item()):.4g}, ls "
+          f"{[round(v, 4) for v in torch.exp(res.params.log_ls).tolist()]};"
+          f" serve {S_Q} {serve_wall * 1e3:.3f} ms = "
+          f"{S_Q / serve_wall:.1f} pts/s ({smi})")
+    check(launches == {"pairwise_covariance": want_k1, "cholesky": 0,
+                       "panel_factor": 0},
+          f"sparse path launches {launches}: K1 = {S_R} restarts x "
+          f"({st['n_vg_calls']} value+grad x (1 + 2 x {C}) + "
+          f"{st['n_v_calls']} value x (1 + {C})) + precompute (1 + {C}) + "
+          f"predict 1 = {want_k1}; K2 = K3 = 0 (the m x m and p x p "
+          f"Choleskys are library math, as in the JAX package)")
+    rmse = (mean - _truth1m(Xq)).pow(2).mean().sqrt().item()
+    check(bool(torch.isfinite(res.restart_elbos).all())
+          and mean.shape == var.shape == (S_Q,)
+          and bool(torch.isfinite(mean).all() & torch.isfinite(var).all()
+                   & (var >= 0).all()) and rmse <= S_RMSE_MAX,
+          f"every restart's ELBO finite; served {S_Q} means and variances "
+          f"finite, variances >= 0 (mean posterior sd "
+          f"{var.mean().sqrt().item():.4g}); rmse of the mean against the "
+          f"truth {rmse:.4g} <= {S_RMSE_MAX} (noise floor {S_NOISE})")
+
+    # K1 on the path's own operands at the fitted thetas
+    U = kernels._scaled(res.Z, res.params, cfg)[None].contiguous()
+    Xs = kernels._scaled(X[:S_ROW_CHUNK], res.params, cfg)[None].contiguous()
+    Qs = kernels._scaled(Xq, res.params, cfg)[None].contiguous()
+    amp = torch.exp(res.params.log_amp).reshape(1)
+    k1_err, k1_shapes = _k1_path_checks(dev, [
+        (f"cross(1,{S_M},{S_ROW_CHUNK})d{S_D}", U, Xs, amp),
+        (f"cross(1,{S_M},{S_M})d{S_D}", U, U.clone(), amp),
+        (f"cross(1,{S_M},{S_Q})d{S_D}", U, Qs, amp)], smi, "sparse")
+    del Xs
+
+    # one value+grad at the check theta: wall, device time, peak memory;
+    # then float32 against float64 with the same Z
+    theta = kernels.GPParams(
+        log_amp=torch.tensor(math.log(S_AMP), device=dev),
+        log_nugget=torch.tensor(math.log(S_NUGGET), device=dev),
+        log_ls=torch.full((S_D,), math.log(S_LS), device=dev))
+
+    def value_and_grad(params, d=data, Z=res.Z):
+        leaves = [t.detach().clone().requires_grad_(True) for t in params]
+        ll = sparse.elbo(kernels.GPParams(*leaves), d, cfg, Z,
+                         row_chunk=S_ROW_CHUNK)
+        return ll.detach(), torch.autograd.grad(ll, leaves)
+
+    value_and_grad(theta)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = k1.launches
+    t0 = time.perf_counter()
+    ll32, g32 = value_and_grad(theta)
+    torch.cuda.synchronize()
+    vg_wall = time.perf_counter() - t0
+    vg_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    vg_k1 = k1.launches - before
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        sparse.elbo(theta, data, cfg, res.Z, row_chunk=S_ROW_CHUNK)
+    torch.cuda.synchronize()
+    v_wall = time.perf_counter() - t0
+    print(f"sparse value+grad (check theta): {vg_wall * 1e3:.2f} ms wall, "
+          f"peak {vg_peak:.2f} GiB, K1 {vg_k1} launches (1 + 2 x {C}); "
+          f"value alone {v_wall * 1e3:.2f} ms ({smi})")
+    check(vg_k1 == 1 + 2 * C, f"one value+grad launches K1 {vg_k1} = 1 + "
+          f"2 x {C}")
+    profile_once("value+grad (check theta)", lambda: value_and_grad(theta),
+                 vg_wall * 1e3, smi, cell="sparse", warm=False)
+    d64 = GPData(X=X.double(), y=y.double())
+    t0 = time.perf_counter()
+    ll64, g64 = value_and_grad(kernels.GPParams(*(t.double() for t in theta)),
+                               d64, res.Z.double())
+    torch.cuda.synchronize()
+    wall64 = time.perf_counter() - t0
+    del d64
+    dll = abs(ll32.item() - ll64.item()) / S_N
+    gv32 = torch.cat([g.double().reshape(-1) for g in g32])
+    gv64 = torch.cat([g.reshape(-1) for g in g64])
+    dg = (gv32 - gv64).abs().max().item() / gv64.abs().max().item()
+    check(dll <= S_LL_PER_POINT and dg <= S_GRAD_RTOL,
+          f"ELBO value+grad float32 vs float64 (same Z; float64 "
+          f"{wall64:.2f} s): {ll32.item():.10g} vs {ll64.item():.10g}, "
+          f"{dll:.3g} nats a point <= {S_LL_PER_POINT} "
+          f"({abs(ll32.item() - ll64.item()) / abs(ll64.item()):.3g} x "
+          f"|ll64|); gradient {dg:.3g} x max|g64| <= {S_GRAD_RTOL} (g32 "
+          f"{[round(v, 3) for v in gv32.tolist()]}, g64 "
+          f"{[round(v, 3) for v in gv64.tolist()]})")
+
+    # the snapshot, text and .npz: written, read back, served equal
+    emu = _identity_pca_emulator(
+        sparse.SparseMultivariateEmulator, S_D, dev, torch.float32,
+        Z=res.Z, params=kernels.GPParams(*(a[None] for a in res.params)),
+        states=sparse.SGPRServeState(*(a[None] for a in res.state)),
+        config=cfg)
+    sdir = pathlib.Path(work) / "sparse"
+    sdir.mkdir(parents=True, exist_ok=True)
+    for name, tol in (("sgpr_1m.npz", SERVER_TOL),
+                      ("sgpr_1m.txt", S_TEXT_SERVE_TOL)):
+        path = str(sdir / name)
+        write_snapshot_auto(path, emu)
+        back, _, _ = read_snapshot_auto(path, device=dev,
+                                        dtype=torch.float32)
+        same = torch.equal(back.Z, res.Z) and all(
+            torch.equal(a[0], b) for a, b in
+            zip(back.states[1:-1], res.state[1:-1]))
+        dp = max(((a[0] - b).abs() / b.abs().clamp(min=1.0)).max().item()
+                 for a, b in zip(back.params, res.params))
+        mb, vb = sparse.predict_multivariate_sparse(back, Xq.cpu().numpy())
+        dm = (mb[:, 0] - mean).abs().max().item() / mean.abs().max().item()
+        dv = (vb[:, 0] - var).abs().max().item() / var.abs().max().item()
+        check(same and dp <= 2.5e-7 and dm <= tol and dv <= tol,
+              f"snapshot {name} ({os.path.getsize(path)} bytes) read back: "
+              f"Z and the serve state bitwise equal {same}, log-parameters "
+              f"{dp:.3g} x max(1, |log theta|) <= 2.5e-7; served: mean "
+              f"{dm:.3g} x scale, variance {dv:.3g} x max var <= {tol}")
+
+    # the CLI at config 3's recipe, N=S_CLI_N: estimate_thetas --inducing
+    # -> interactive_mode over the pipe -> validate --model_file, at
+    # float64 (the CLI's default): at float32 (NVIDIA H100 80GB HBM3)
+    # restarts ran to K_mm beyond float32, a garbage ELBO won the argmax,
+    # its state failed to factor and the writer refused the snapshot
+    crng = np.random.default_rng([seed, 12])
+    X3, Y3 = _heavy_ion_like(crng, S_CLI_N, C3_D, C3_T)
+    q3 = crng.uniform(size=(64, C3_D))
+    model, cstate = str(sdir / "model.txt"), str(sdir / "sgpr_state.txt")
+    write_model_file(model, X3, Y3)
+    t0 = time.perf_counter()
+    rc, _, err = _run_cli(
+        ["estimate_thetas", model, cstate, "--dtype", "float64", "--device",
+         "cuda", "--inducing", str(S_CLI_M), "--row_chunk",
+         str(S_CLI_ROW_CHUNK), "--regression_order", "1", "--pca_variance",
+         str(C3_PCA), "--restarts", str(C3_R), "--steps", str(S_CLI_STEPS),
+         "--seed", str(seed)])
+    cli_wall = time.perf_counter() - t0
+    ok = rc == 0 and pathlib.Path(cstate).exists()
+    check(ok, f"CLI estimate_thetas --inducing {S_CLI_M} --row_chunk "
+          f"{S_CLI_ROW_CHUNK} --dtype float64 at N={S_CLI_N} exit {rc} in "
+          f"{cli_wall:.2f} s (process start included); stderr: "
+          f"{err.strip()!r}")
+    if ok:
+        semu, pn, on = read_snapshot_auto(cstate, device=dev,
+                                          dtype=torch.float32)
+        batches = [q3[:1], q3[1:16], q3[16:]]
+        header = ([f"{C3_D}\n"] + [f"{x}\n" for x in pn]
+                  + [f"{2 * C3_T}\n"] + [f"mean_{x}\n" for x in on]
+                  + [f"variance_{x}\n" for x in on])
+        t0 = time.perf_counter()
+        served = _serve_over_pipe(cstate, batches, C3_D, C3_T, header)
+        serve_cli = time.perf_counter() - t0
+        want = np.concatenate(
+            [torch.cat(sparse.predict_multivariate_sparse(semu, b),
+                       dim=1).cpu().double().numpy() for b in batches])
+        scale = np.abs(want[:, :C3_T]).max()
+        pv = np.abs(want[:, C3_T:]).max()
+        sm = np.abs(served[:, :C3_T] - want[:, :C3_T]).max() / scale
+        sv = np.abs(served[:, C3_T:] - want[:, C3_T:]).max() / pv
+        check(bool(np.isfinite(served).all()) and sm <= SERVER_TOL
+              and sv <= SERVER_TOL,
+              f"interactive_mode on the sparse snapshot ({semu.n_components} "
+              f"components, m={semu.Z.shape[0]}; {serve_cli:.2f} s with "
+              f"process start) vs in-process: mean {sm:.3g} x scale, var "
+              f"{sv:.3g} x max var <= {SERVER_TOL}")
+        t0 = time.perf_counter()
+        rc, out, err = _run_cli(["validate", cstate, "--model_file", model,
+                                 "--dtype", "float32", "--device", "cuda"])
+        summary = dict(ln.split() for ln in out.splitlines()[1:])
+        check(rc == 0 and int(summary.get("n", 0)) == S_CLI_N * C3_T,
+              f"CLI validate --model_file on the sparse snapshot exit {rc} "
+              f"in {time.perf_counter() - t0:.2f} s: {summary}; stderr "
+              f"{err.strip()!r}")
+    print(f"sparse phase wall {time.perf_counter() - t_phase:.1f} s")
+    require(not failed, f"sparse: {len(failed)} checks failed: {failed}")
     return launches, (k1_err, k1_shapes)
+
+
+def _k2_k3_path_checks(dev, C_batch, panel, smi) -> dict:
+    """K2 on a path's own Grams (B, n, n) and K3 on a path's own diagonal
+    panel (1, b, b): against their plain versions (relative to max|L|) and
+    float64, timed beside the library calls, with their bounds."""
+    from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
+    from madaiemulator_tpu_torch.ops.hopper import panel as k3
+
+    out = {}
+    B, n, _ = C_batch.shape
+    L = k2.cholesky(C_batch)
+    Lp = k2.cholesky_plain(C_batch)
+    L64 = torch.linalg.cholesky(C_batch.double())
+    scale = L64.abs().max().item()
+    e_plain = (L - Lp).abs().max().item() / scale
+    e64 = (L.double() - L64).abs().max().item() / scale
+    Ld = L.double()
+    resid = ((Ld @ Ld.mT - C_batch.double()).abs().max().item()
+             / C_batch.abs().max().item())
+    t = {"ms": cuda_ms(lambda: k2.cholesky(C_batch)),
+         "plain_ms": cuda_ms(lambda: k2.cholesky_plain(C_batch), iters=2,
+                             warmup=1),
+         "library_ms": cuda_ms(lambda: torch.linalg.cholesky_ex(C_batch))}
+    t["bound_ms"], t["bound_by"] = bound_ms(2 * 4 * B * n * n,
+                                            B * n ** 3 / 3)
+    t["max_abs_err"] = (L - Lp).abs().max().item()
+    t["rel_err_plain"], t["rel_err_f64"] = e_plain, e64
+    t["backward_err"] = resid
+    # the states' Grams sit at the fitted nuggets (cond up to ~1.6e7), where
+    # any two float32 factors differ by ~1e-4 x max|L|: the backward error
+    # is gated (phase 8's rule), the forward distances printed
+    require(resid <= C5_K2_RESIDUAL,
+            f"diagnostics K2 ({B},{n},{n}) backward error {resid:.3g} > "
+            f"{C5_K2_RESIDUAL}")
+    out[f"cholesky({B},{n},{n})"] = t
+    print(f"diagnostics K2 ({B},{n},{n}) on config 3's state Grams: "
+          f"backward error {resid:.3g} <= {C5_K2_RESIDUAL}; forward vs plain "
+          f"{e_plain:.3g}, vs float64 {e64:.3g} x max|L| (not gated);"
+          f" kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.2f} ms, "
+          f"cholesky_ex {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4g} "
+          f"ms ({t['bound_by']}) ({smi})")
+    b = panel.shape[-1]
+    (Lk, Li), (Lq, Lqi) = k3.panel_factor(panel), k3.panel_factor_plain(panel)
+    P64 = torch.linalg.cholesky(panel.double())
+    scale = P64.abs().max().item()
+    e_plain = (Lk - Lq).abs().max().item() / scale
+    e64 = (Lk.double() - P64).abs().max().item() / scale
+    inv = (Li @ Lk - torch.eye(b, device=dev)).abs().max().item()
+
+    def pair():
+        Lc, _ = torch.linalg.cholesky_ex(panel)
+        return torch.linalg.solve_triangular(
+            Lc, torch.eye(b, device=dev).expand_as(Lc), upper=False)
+
+    t = {"ms": cuda_ms(lambda: k3.panel_factor(panel)),
+         "plain_ms": cuda_ms(lambda: k3.panel_factor_plain(panel), iters=2,
+                             warmup=1),
+         "library_ms": cuda_ms(pair)}
+    t["bound_ms"], t["bound_by"] = bound_ms(3 * 4 * b * b, 2 * b ** 3 / 3)
+    t["max_abs_err"] = (Lk - Lq).abs().max().item()
+    t["rel_err_plain"], t["rel_err_f64"], t["inv_err"] = e_plain, e64, inv
+    require(e_plain <= K2_RTOL and e64 <= K2_RTOL and inv <= K3_INV_TOL,
+            f"diagnostics K3 (1,{b},{b}) vs plain {e_plain:.3g}, vs float64 "
+            f"{e64:.3g}, |Linv L - I| {inv:.3g}")
+    out[f"panel_factor(1,{b},{b})"] = t
+    print(f"diagnostics K3 (1,{b},{b}) on config 4's first diagonal panel: "
+          f"vs plain {e_plain:.3g}, vs float64 {e64:.3g} x max|L| <= "
+          f"{K2_RTOL}, |Linv L - I| {inv:.3g} <= {K3_INV_TOL}; kernel "
+          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.2f} ms, library pair "
+          f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4g} ms "
+          f"({t['bound_by']}) ({smi})")
+    return out
+
+
+def _loo_gap(res32, res64, y_scale) -> tuple:
+    """LOO at float32 against float64: (means over the mean scale,
+    variances over the largest float64 variance)."""
+    dm = (res32[0].double() - res64[0]).abs().max().item() / y_scale
+    dv = ((res32[1].double() - res64[1]).abs().max().item()
+          / res64[1].abs().max().item())
+    return dm, dv
+
+
+def phase_diagnostics(dev, seed: int, smi: str, work, iter_params) -> tuple:
+    """The validation diagnostics (models/diagnostics.py) and the `validate`
+    CLI on the card, three paths each between counts set to 0 and read:
+    config 3 (phase 7's snapshot read at float32, K1 + K2 building its
+    states; LOO on the states; D_S joint draws at D_Q queries), config 4
+    (LOO at N=16,384 at phase 6's check theta: one K1 Gram, K3 on its 32
+    panels), the matrix-free path (phase 10's data at its fitted thetas:
+    the holdout of D_HOLD points and the matrix-free covariance of D_COV
+    queries, K1 tiles only). Around them: LOO at float32 against float64,
+    the covariance's diagonal against the served variance, the draws'
+    moments, the matrix-free diagonal against the "exact" served variance,
+    K2 and K3 on the paths' own operands, and `validate` over the CLI
+    (LOO with and without --model_file and --output; --matrix_free
+    --holdout on phase 10's N=2,048 snapshot). Every check is made and
+    printed; the phase fails at its end if any did not pass."""
+    from madaiemulator_tpu_torch.io.snapshot import read_snapshot
+    from madaiemulator_tpu_torch.models import diagnostics as dg
+    from madaiemulator_tpu_torch.models import gp, iterative
+    from madaiemulator_tpu_torch.models.multivariate import (
+        IterativeMultivariateEmulator,
+        _predict_components,
+        _scaled_queries,
+        emulator_from_numpy,
+        predict_multivariate,
+        reconstruct_observables,
+    )
+    from madaiemulator_tpu_torch.ops import kernels
+    from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
+    from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
+    from madaiemulator_tpu_torch.ops.hopper import panel as k3
+    from madaiemulator_tpu_torch.utils.config import GPConfig
+
+    t_phase = time.perf_counter()
+    failed = []
+
+    def check(ok: bool, what: str) -> None:
+        print(f"diagnostics check {'ok' if ok else 'FAILED'}: {what}")
+        if not ok:
+            failed.append(what)
+
+    def zero():
+        k1.launches = k2.launches = k3.launches = 0
+        torch.cuda.synchronize()
+
+    def counts():
+        return {"pairwise_covariance": k1.launches, "cholesky": k2.launches,
+                "panel_factor": k3.launches}
+
+    paths, times = {}, {}
+    c3 = pathlib.Path(work) / "config3"
+    state, model = str(c3 / "state.txt"), str(c3 / "model.txt")
+    require(pathlib.Path(state).exists(), "phase 7's snapshot is missing")
+    Xq = np.random.default_rng([seed, 13]).uniform(size=(D_Q, C3_D))
+
+    # 1. config 3: the snapshot's states (K1 + K2), LOO on them, the draws
+    zero()
+    t0 = time.perf_counter()
+    emu, _, _ = read_snapshot(state, device=dev, dtype=torch.float32)
+    res, loo_m, loo_v = dg.loo_cv_multivariate(emu)
+    torch.cuda.synchronize()
+    times["config3_loo_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    draws = dg.sample_multivariate_posterior(
+        emu, Xq, torch.Generator().manual_seed(seed), D_S)
+    torch.cuda.synchronize()
+    times["config3_draws_s"] = time.perf_counter() - t0
+    paths["diagnostics_config3"] = counts()
+    n3, r3 = emu.X.shape[0], emu.n_components
+    c = paths["diagnostics_config3"]
+    check(c["cholesky"] >= 1 and c["pairwise_covariance"]
+          == c["cholesky"] + 2 and c["panel_factor"] == 0,
+          f"config 3 diagnostics launches {c}: K2 once per factorization "
+          f"of the states (1 + the jitter rungs it needed), K1 once per "
+          f"Gram + 2 (the draws' K* and K**), K3 = 0")
+    check(bool(res.ok.all()) and bool(torch.isfinite(loo_m).all()
+                                      & torch.isfinite(loo_v).all()
+                                      & (loo_v > 0).all())
+          and draws.shape == (D_S, D_Q, C3_T)
+          and bool(torch.isfinite(draws).all()),
+          f"config 3 (N={n3}, r={r3}) LOO finite, variances > 0 "
+          f"({times['config3_loo_s']:.3f} s with the states' build); "
+          f"{D_S} joint draws at {D_Q} queries finite "
+          f"({times['config3_draws_s']:.3f} s) ({smi})")
+    # LOO at float32 against float64, at the fitted thetas (printed) and
+    # at a well-conditioned theta (gated), the float32 jitter floor on both
+    cfg = emu.config
+    jit32 = kernels.effective_jitter_frac(n3, torch.float32, cfg)
+    arrays = {k: v.detach().double().cpu().numpy() for k, v in dict(
+        mins=emu.scaling.mins, ranges=emu.scaling.ranges, X=emu.X, Z=emu.Z,
+        ymean=emu.pca.ymean, ystd=emu.pca.ystd,
+        eigenvalues=emu.pca.eigenvalues, U=emu.pca.U,
+        log_amp=emu.params.log_amp, log_nugget=emu.params.log_nugget,
+        log_ls=emu.params.log_ls).items()}
+    y_scale = float(np.abs(arrays["Z"]).max())
+    for what in ("fitted", "check"):
+        if what == "check":
+            arrays["log_amp"] = np.full(r3, math.log(D_C3_AMP))
+            arrays["log_nugget"] = np.full(r3, math.log(D_C3_NUGGET
+                                                        * D_C3_AMP))
+            arrays["log_ls"] = np.full((r3, C3_D), math.log(D_C3_LS))
+        e32 = emulator_from_numpy(arrays, dataclasses.replace(
+            cfg, jitter=jit32), dev, dtype=torch.float32)
+        e64 = emulator_from_numpy(arrays, dataclasses.replace(
+            cfg, jitter=jit32), dev, dtype=torch.float64)
+        r32, r64 = dg.loo_cv_multivariate(e32)[0], dg.loo_cv_multivariate(
+            e64)[0]
+        dm, dv = _loo_gap(r32, r64, y_scale)
+        msg = (f"config 3 LOO float32 vs float64 at the {what} thetas "
+               f"(jitter {jit32:.3g} x amp on both): means {dm:.3g} x "
+               f"scale, variances {dv:.3g} x max var")
+        if what == "check":
+            check(dm <= D_LOO_TOL and dv <= D_LOO_TOL,
+                  f"{msg} <= {D_LOO_TOL}")
+        else:
+            print(f"diagnostics: {msg} (not gated: nuggets / amp "
+                  f"{(emu.params.log_nugget - emu.params.log_amp).exp().tolist()})")
+    # the covariance's diagonal against the served variance; the draws'
+    # empirical mean against the served mean
+    Xs = _scaled_queries(emu, Xq)
+    _, cov = dg.posterior_covariance(emu.states, emu.params,
+                                     gp.GPData(X=emu.X, y=emu.Z.mT), Xs, cfg)
+    _, v_pc = _predict_components(emu.states, emu.params, emu.X, emu.Z, Xs,
+                                  cfg)
+    prior = (torch.exp(emu.params.log_amp)
+             + torch.exp(emu.params.log_nugget)).max().item()
+    dd = (torch.diagonal(cov, dim1=-2, dim2=-1) - v_pc).abs().max().item()
+    mean_o, var_o = predict_multivariate(emu, Xq)
+    # the draws' variance is that of the covariance sampled, eigh's with
+    # its negative eigenvalues clamped: at the fitted nuggets (~1e-8 x amp)
+    # float32 eigenvalue errors of ~eps x max lambda exceed the smallest
+    # served variances, so the sampling error is taken from it
+    lam, U = torch.linalg.eigh(cov)
+    v_s = (U * U * torch.clamp(lam, min=0.0)[..., None, :]).sum(-1)
+    _, var_s = reconstruct_observables(torch.zeros_like(v_s), v_s, emu.pca)
+    zed = (draws.mean(0) - mean_o) / torch.sqrt(var_s / D_S)
+    check(dd <= D_DIAG_TOL * prior and zed.abs().max().item() <= D_Z_MAX,
+          f"the covariance's diagonal vs the served variance {dd:.3g} <= "
+          f"{D_DIAG_TOL} x prior var {prior:.4g}; the draws' mean within "
+          f"{zed.abs().max().item():.3g} <= {D_Z_MAX} standard errors of "
+          f"the sampled covariance "
+          f"({(zed.abs() <= 2).double().mean().item():.4f} within 2; its "
+          f"variance vs the served one: max "
+          f"{(var_s - var_o).abs().max().item():.3g}, "
+          f"{(var_s - var_o).abs().max().item() / var_o.max().item():.3g} "
+          f"of the largest)")
+    del cov, draws
+
+    # 2. config 4 at phase 6's check theta: LOO on the K3 route
+    data, _ = _c4_data(seed, dev)
+    c4cfg = GPConfig(nparams=C4_D, regression_order=1, cholesky_block=512)
+    c4cfg = dataclasses.replace(c4cfg, jitter=kernels.effective_jitter_frac(
+        C4_N, torch.float32, c4cfg))
+    theta = kernels.GPParams(
+        log_amp=torch.zeros((), device=dev),
+        log_nugget=torch.log(torch.tensor(1e-2, device=dev)),
+        log_ls=torch.log(torch.full((C4_D,), 0.5, device=dev)))
+    zero()
+    t0 = time.perf_counter()
+    r32 = dg.loo_cv(theta, data, c4cfg)
+    torch.cuda.synchronize()
+    times["config4_loo_s"] = time.perf_counter() - t0
+    paths["diagnostics_config4"] = counts()
+    panels = C4_N // 512
+    check(paths["diagnostics_config4"] == {"pairwise_covariance": 1,
+                                           "cholesky": 0,
+                                           "panel_factor": panels},
+          f"config 4 LOO launches {paths['diagnostics_config4']}: one K1 "
+          f"Gram, K3 on each of its {panels} diagonal panels, K2 = 0")
+    t0 = time.perf_counter()
+    r64 = dg.loo_cv(kernels.GPParams(*(a.double() for a in theta)),
+                    gp.GPData(X=data.X.double(), y=data.y.double()), c4cfg)
+    torch.cuda.synchronize()
+    wall64 = time.perf_counter() - t0
+    dm, dv = _loo_gap(r32, r64, data.y.abs().max().item())
+    check(bool(r32.ok) and dm <= D_C4_LOO_TOL and dv <= D_C4_LOO_TOL,
+          f"config 4 LOO (N={C4_N}, K3 route, {times['config4_loo_s']:.3f} s"
+          f"; float64 {wall64:.2f} s) float32 vs float64: means {dm:.3g} x "
+          f"scale, variances {dv:.3g} x max var <= {D_C4_LOO_TOL}; "
+          f"summary {dg.loo_summary(r32, data.y)} ({smi})")
+    del r32, r64
+    # K2 on config 3's state Grams, K3 on config 4's first panel
+    C3 = kernels.gram_matrix(emu.X, emu.params, cfg).contiguous()
+    C4 = kernels.gram_matrix(data.X, theta, c4cfg)
+    k23 = _k2_k3_path_checks(dev, C3, C4[:512, :512][None].contiguous(), smi)
+    del C3, C4, data
+    torch.cuda.empty_cache()
+
+    # 3. the matrix-free path on phase 10's data at its fitted thetas
+    idata, iq = _iter_data(seed, dev)
+    icfg = GPConfig(nparams=I_D, regression_order=1)
+    iemu = _identity_pca_emulator(
+        IterativeMultivariateEmulator, I_D, dev, torch.float32,
+        X=idata.X, Z=idata.y[:, None],
+        params=kernels.GPParams(*(a[None] for a in iter_params)),
+        config=icfg)
+    kw = dict(rank=I_RANK, cg_tol=I_SERVE_TOL, cg_max_iters=I_ITERS)
+    zero()
+    t0 = time.perf_counter()
+    hold, hm, hv = dg.holdout_cv_multivariate(
+        iemu, torch.Generator().manual_seed(seed), D_HOLD,
+        row_chunk=I_ROW_CHUNK, **kw)
+    torch.cuda.synchronize()
+    times["holdout_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ist = iterative.precompute_iterative_predictor(
+        iter_params, idata, icfg, row_chunk=I_ROW_CHUNK, **kw)
+    q = iq[:D_COV]
+    cm, cov = dg.posterior_covariance_iterative(ist, idata, q,
+                                                row_chunk=I_ROW_CHUNK)
+    torch.cuda.synchronize()
+    times["cov_iterative_s"] = time.perf_counter() - t0
+    paths["diagnostics_iterative"] = counts()
+    c = paths["diagnostics_iterative"]
+    check(c["pairwise_covariance"] > 0 and c["cholesky"] == 0
+          and c["panel_factor"] == 0,
+          f"matrix-free diagnostics launches {c}: K1 > 0, K2 = K3 = 0")
+    s = dg.validation_summary(hm, hv, idata.y[torch.tensor(hold,
+                                                           device=dev)])
+    check(hm.shape == hv.shape == (D_HOLD, 1) and bool(
+        torch.isfinite(hm).all() & torch.isfinite(hv).all()
+        & (hv >= 0).all()),
+          f"holdout of {D_HOLD} of N={I_N} at the fitted thetas "
+          f"({times['holdout_s']:.2f} s): {s} ({smi})")
+    me, ve = iterative.predict_iterative_from_state(
+        ist, idata, q, query_chunk=D_COV, variance_method="exact",
+        row_chunk=I_ROW_CHUNK)
+    amp = math.exp(iter_params.log_amp.item())
+    dd = (torch.diagonal(cov) - ve).abs().max().item()
+    dmean = (cm - me).abs().max().item()
+    check(dd <= D_ITER_DIAG_TOL * amp and dmean <= SERVER_TOL * max(
+        1.0, me.abs().max().item()),
+          f"matrix-free covariance of {D_COV} queries "
+          f"({times['cov_iterative_s']:.2f} s with the serving state): "
+          f"diagonal vs the exact served variance {dd:.3g} <= "
+          f"{D_ITER_DIAG_TOL} x amp {amp:.4g}; means {dmean:.3g}")
+    del ist, cov, idata
+
+    # 4. validate over the CLI: phase 7's snapshot, with and without
+    # --model_file, with --output; phase 10's N=2,048 snapshot matrix-free
+    table = str(c3 / "loo_table.txt")
+    istate = str(pathlib.Path(work) / "iterative" / "iter_state.txt")
+    runs = {
+        "loo": ["validate", state],
+        "model_file_output": ["validate", state, "--model_file", model,
+                              "--output", table],
+        "matrix_free_holdout": ["validate", istate, "--matrix_free",
+                                "--holdout", "64", "--rank", str(I_RANK),
+                                "--cg_tol", str(I_SERVE_TOL),
+                                "--cg_max_iters", str(I_ITERS)],
+    }
+    for name, argv in runs.items():
+        t0 = time.perf_counter()
+        rc, out, err = _run_cli(argv + ["--dtype", "float32", "--device",
+                                        "cuda"])
+        lines = out.splitlines()
+        summary = dict(ln.split() for ln in lines[1:])
+        want_n = (64 if "holdout" in name else n3) * C3_T
+        ok = rc == 0 and int(summary.get("n", 0)) == want_n
+        if name == "model_file_output" and ok:
+            rows = pathlib.Path(table).read_text().splitlines()
+            ok = len(rows) == n3 + 1 and rows[0].startswith(
+                "# per-point LOO: loo_mean_")
+        check(ok, f"CLI validate {name} exit {rc} in "
+              f"{time.perf_counter() - t0:.2f} s (process start included): "
+              f"{lines[:1]} {summary}; stderr {err.strip()[-300:]!r}")
+    print(f"diagnostics phase wall {time.perf_counter() - t_phase:.1f} s "
+          f"({times})")
+    require(not failed, f"diagnostics: {len(failed)} checks failed: "
+            f"{failed}")
+    return paths, k23
 
 
 def main() -> int:
@@ -2838,6 +3585,9 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
+    # phases 7 and 10 leave their CLI files here for phase 12
+    work_dir = tempfile.TemporaryDirectory()
+    work = pathlib.Path(work_dir.name)
     smi = phase_device()
     phase_build()
     kernels = phase_kernels(dev, rng, np.random.default_rng([args.seed, 1]))
@@ -2847,10 +3597,17 @@ def main() -> int:
                                                                    smi)
     (paths["config4"], paths["config4_fast"],
      paths["config4_tiers"]) = phase_config4(dev, args.seed, smi)
-    paths["config3_fit"], k2_fit = phase_config3(dev, args.seed, smi)
+    paths["config3_fit"], k2_fit = phase_config3(dev, args.seed, smi,
+                                                 work / "config3")
     paths["config5"], c5 = phase_config5(dev, args.seed, smi)
     paths["gradient"], k3_grad = phase_gradient(dev, args.seed, smi)
-    paths["iterative"], k1_iter = phase_iterative(dev, args.seed, smi)
+    paths["iterative"], k1_iter, iter_params = phase_iterative(
+        dev, args.seed, smi, work / "iterative")
+    paths["sparse"], k1_sparse = phase_sparse(dev, args.seed, smi, work)
+    diag_paths, k23_diag = phase_diagnostics(dev, args.seed, smi, work,
+                                             iter_params)
+    paths.update(diag_paths)
+    work_dir.cleanup()
     for k in kernels:
         by_path = {p: c.get(k["name"], 0) for p, c in paths.items()}
         k["launches_by_path"] = by_path
@@ -2866,9 +3623,21 @@ def main() -> int:
             k["max_abs_err"] = max(k["max_abs_err"], err)
             k["config5"] = by_shape
         if k["name"] == "pairwise_covariance":
-            # the matrix-free path's tiles, pivot columns and serve chunks
-            k["max_abs_err"] = max(k["max_abs_err"], k1_iter[0])
+            # the matrix-free path's tiles, pivot columns and serve chunks;
+            # the sparse path's row chunks, k(Z, Z) and serve block
+            k["max_abs_err"] = max(k["max_abs_err"], k1_iter[0],
+                                   k1_sparse[0])
             k["iterative"] = k1_iter[1]
+            k["sparse"] = k1_sparse[1]
+        for label, reading in k23_diag.items():
+            # K2 on config 3's state Grams (gated by its backward error:
+            # the forward distance there measures the fitted nuggets, not
+            # the kernel), K3 on config 4's first panel
+            if label.startswith(k["name"] + "("):
+                if "backward_err" not in reading:
+                    k["max_abs_err"] = max(k["max_abs_err"],
+                                           reading["max_abs_err"])
+                k["diagnostics"] = {label: reading}
         if k["name"] == "panel_factor":
             # the gradient path's lane batch (16, 512, 512)
             k["max_abs_err"] = max(k["max_abs_err"], k3_grad["max_abs_err"])

@@ -1,7 +1,8 @@
 """`interactive_emulator_torch` command-line tool (port of
-madaiemulator_tpu/cli.py: `estimate_thetas` on the dense and the
-matrix-free path, `interactive_mode`, `print_thetas` and `convert` on the
-dense snapshot, as text or as .npz by the state file's extension).
+madaiemulator_tpu/cli.py: `estimate_thetas` on the dense, the matrix-free
+and the sparse path, `interactive_mode`, `print_thetas`, `convert` and
+`validate` on the dense and the sparse snapshot, as text or as .npz by the
+state file's extension).
 
     interactive_emulator_torch estimate_thetas <model_file> <state_file>
         [--regression_order=N] [--covariance_fn=NAME] [--pca_variance=P]
@@ -14,6 +15,7 @@ dense snapshot, as text or as .npz by the state file's extension).
         [--fit_method=dense|iterative] [--rank=K] [--probes=P]
         [--lanczos_iters=M] [--cg_tol=T] [--cg_max_iters=I]
         [--logdet_method=slq|mbcg] [--checkpoint_path=PATH] [--vg_batch=B]
+        [--inducing=M] [--inducing_opt_steps=K] [--row_chunk=C]
 
 trains the multivariate emulator (PCA + one GP per component, every
 component x restart lane in one lock-step LBFGS batch) and writes the
@@ -26,19 +28,35 @@ variances; --gradients_file N*t*d output gradients w.r.t. the raw inputs
 component matrix-free (models/iterative.py: PCG with a rank --rank
 pivoted-Cholesky preconditioner, an SLQ or mBCG logdet over --probes
 probes, the host-loop LBFGS; --checkpoint_path writes PATH.c<i> per
-component); it takes no --gradients_file and no --alpha_grid. What is not
-yet ported exits 2 with one line on stderr: --inducing,
---inducing_opt_steps, --row_chunk, --cholesky_method=blocked, a
-MULTIFIDELITY model file.
+component); it takes no --gradients_file and no --alpha_grid. --inducing=M
+trains sparse (SGPR, models/sparse.py: M greedy-maximin inducing points, an
+O(N M^2) ELBO; --row_chunk streams the N axis in chunks of C rows,
+--inducing_opt_steps refines the inducing points by K Adam steps) and
+writes the sparse snapshot; it composes with --noise_file and
+--gradients_file and excludes --fit_method=iterative and --alpha_grid. What
+is not yet ported exits 2 with one line on stderr: --cholesky_method=blocked,
+a MULTIFIDELITY model file.
 
     interactive_emulator_torch print_thetas <state_file>
         prints the fitted per-component hyperparameters (natural space).
 
     interactive_emulator_torch convert <in_state> <out_state>
-        re-encodes a dense snapshot between text and .npz (by extension; the
-        JAX CLI's output byte for byte in text, key for key in .npz).
-        Multi-fidelity and sparse snapshots, in either encoding, exit 2 with
+        re-encodes a dense or sparse snapshot between text and .npz (by
+        extension; the JAX CLI's output byte for byte in text, key for key
+        in .npz). Multi-fidelity snapshots, in either encoding, exit 2 with
         one line.
+
+    interactive_emulator_torch validate <state_file> [--model_file=M]
+        [--interval=P] [--output=PATH] [--dtype=float64|float32]
+        [--device=cuda|cpu] [--holdout=M [--matrix_free] [--seed=K]
+        [--rank=K] [--cg_tol=T] [--cg_max_iters=I]]
+        closed-form leave-one-out validation (models/diagnostics.py: one
+        factorization a component, no refits), or with --holdout a held-out
+        block predicted through the matrix-free serving path
+        (--matrix_free: no dense factorization anywhere); prints rmse /
+        coverage / standardized-residual moments, --output writes the
+        per-point table. A sparse snapshot validates by its training
+        residuals against --model_file. Multi-fidelity snapshots exit 2.
 
     interactive_emulator_torch interactive_mode <state_file>
         [--dtype=float64|float32] [--device=cuda|cpu]
@@ -53,7 +71,8 @@ component's preconditioner and training solves once at start-up and
 answers each batch by PCG (--variance_method=exact, in column blocks of
 --variance_rhs) or by the preconditioner's Woodbury apply ("precond"), in
 chunks of --query_chunk queries. A gradient-enhanced (version 3) snapshot
-serves dense only and exits 2 on either.
+serves dense only and exits 2 on either; a sparse snapshot serves from its
+O(m^2) state and exits 2 on either too.
 interactive_mode reads query points (nparams whitespace-separated floats)
 on stdin until EOF
 and writes t means then t variances per query on stdout, "%.17g", flushing
@@ -80,7 +99,6 @@ from typing import List, Optional
 import numpy as np
 
 MAX_BATCH = 1024
-_UNPORTED_TUNING = ("inducing_opt_steps", "row_chunk")
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -130,10 +148,6 @@ def _build_parser() -> argparse.ArgumentParser:
         help="iterative: restarts per objective call (evaluated one after "
         "another)",
     )
-    # the JAX CLI's sparse tuning flags: nothing in this port reads them
-    # yet, so giving one exits 2
-    for name in _UNPORTED_TUNING:
-        est.add_argument(f"--{name}", default=None, help="not yet ported")
     est.add_argument(
         "--restart_chunk", type=int, default=None,
         help="run optimizer restarts in sequential groups of this size "
@@ -181,8 +195,25 @@ def _build_parser() -> argparse.ArgumentParser:
         "value+gradient GP per component (power_exponential alpha=2 or "
         "matern52[_ard]) and writes a version-3 snapshot",
     )
-    est.add_argument("--inducing", type=int, default=0, metavar="M",
-                     help="not yet ported")
+    est.add_argument(
+        "--inducing", type=int, default=0, metavar="M",
+        help="train SPARSE (SGPR, models/sparse.py): M inducing points (a "
+        "greedy-maximin subset of the design) replace the N x N Gram with "
+        "O(N*M^2) work; the snapshot stores the O(M^2) serve state under "
+        "its own grammar. Composes with --gradients_file; excludes "
+        "--fit_method=iterative / --alpha_grid",
+    )
+    est.add_argument(
+        "--inducing_opt_steps", type=int, default=0, metavar="K",
+        help="sparse: refine the inducing LOCATIONS jointly with the "
+        "hyperparameters by K Adam steps on the ELBO after LBFGS",
+    )
+    est.add_argument(
+        "--row_chunk", type=int, default=None, metavar="C",
+        help="sparse: stream the N axis in C-row chunks inside every ELBO "
+        "evaluation (each chunk checkpointed): live memory O(M*C), flat in "
+        "N; use C=65536 with --restart_chunk=1 at N ~ 1e6",
+    )
 
     im = sub.add_parser("interactive_mode", help="serve queries over stdin/stdout")
     im.add_argument("state_file")
@@ -213,9 +244,62 @@ def _build_parser() -> argparse.ArgumentParser:
     pt.add_argument("state_file")
 
     cvt = sub.add_parser(
-        "convert", help="convert a dense state file between text and npz")
+        "convert", help="convert a state file between text and npz")
     cvt.add_argument("in_state")
     cvt.add_argument("out_state")
+
+    val = sub.add_parser(
+        "validate",
+        help="leave-one-out validation of a trained emulator",
+        description=(
+            "Closed-form leave-one-out cross-validation of the emulator in "
+            "the state file (Dubrule identity: one factorization per "
+            "component, no refits). By default residuals are scored "
+            "against the retained-PCA reconstruction of the training "
+            "outputs (GP error only); pass --model_file to score against "
+            "the raw training outputs, which additionally exposes PCA "
+            "truncation error (not covered by the emulator's error bars, "
+            "so coverage drops if truncation is material). Sparse (SGPR) "
+            "snapshots validate with training residuals against "
+            "--model_file (meaningful: m << N effective dof)."
+        ),
+    )
+    val.add_argument("state_file")
+    val.add_argument(
+        "--model_file", default=None, metavar="PATH",
+        help="the training model file; residuals then include PCA "
+        "truncation error",
+    )
+    val.add_argument(
+        "--interval", type=float, default=0.95,
+        help="central credible interval for the coverage metric",
+    )
+    val.add_argument(
+        "--output", default=None, metavar="PATH",
+        help="write the per-point LOO table (loo mean, loo variance, "
+        "truth per observable; '#' header)",
+    )
+    val.add_argument("--dtype", choices=["float64", "float32"],
+                     default="float64")
+    val.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    val.add_argument(
+        "--holdout", type=int, default=None, metavar="M",
+        help="holdout validation instead of closed-form LOO: hold out M "
+        "training points, rebuild the (matrix-free) serving state on the "
+        "rest, predict the held-out block (combine with --matrix_free "
+        "past dense memory)",
+    )
+    val.add_argument(
+        "--matrix_free", action="store_true",
+        help="never build dense factorizations; requires --holdout "
+        "(closed-form LOO needs diag(C^-1), a dense-only quantity)",
+    )
+    val.add_argument("--seed", type=int, default=0,
+                     help="holdout: seed of the held-out subset's draw")
+    val.add_argument("--rank", type=int, default=64,
+                     help="holdout: preconditioner rank")
+    val.add_argument("--cg_tol", type=float, default=1e-6)
+    val.add_argument("--cg_max_iters", type=int, default=256)
     return p
 
 
@@ -226,11 +310,6 @@ def _error(msg: str) -> int:
 
 def _unported_flag(args) -> Optional[str]:
     """The first flag this port cannot honour yet, as an error line."""
-    if args.inducing:
-        return "--inducing (sparse SGPR) is not yet ported"
-    for name in _UNPORTED_TUNING:
-        if getattr(args, name) is not None:
-            return f"--{name} is not yet ported"
     if args.cholesky_method == "blocked":
         return "--cholesky_method=blocked is not ported; use pallas, left or xla"
     return None
@@ -257,6 +336,10 @@ def cmd_estimate_thetas(args) -> int:
     unported = _unported_flag(args)
     if unported:
         return _error(unported)
+    if args.inducing and (args.fit_method == "iterative" or args.alpha_grid):
+        return _error("--inducing (sparse SGPR) excludes "
+                      "--fit_method=iterative and --alpha_grid "
+                      "(models/sparse.py)")
     if args.fit_method == "iterative" and args.gradients_file:
         return _error("--gradients_file needs --fit_method=dense (the "
                       "matrix-free engine has no joint value+gradient "
@@ -321,6 +404,9 @@ def cmd_estimate_thetas(args) -> int:
         X = torch.tensor(mf.X, dtype=dtype, device=dev)
         Y = torch.tensor(mf.Y, dtype=dtype, device=dev)
         gen = torch.Generator().manual_seed(args.seed)
+        if args.inducing:
+            return _estimate_sparse(args, mf, gen, X, Y, cfg, noise,
+                                    gradients)
         if args.fit_method == "iterative":
             emu = fit_multivariate_iterative(
                 gen, X, Y, cfg,
@@ -369,12 +455,41 @@ def cmd_estimate_thetas(args) -> int:
     return 0
 
 
+def _estimate_sparse(args, mf, gen, X, Y, cfg, noise, gradients) -> int:
+    """estimate_thetas --inducing: the sparse multivariate fit (one SGPR
+    per PC on a shared inducing set) -> the sparse snapshot."""
+    from madaiemulator_tpu_torch.io.snapshot import write_snapshot_auto
+    from madaiemulator_tpu_torch.models.sparse import fit_multivariate_sparse
+
+    emu = fit_multivariate_sparse(
+        gen, X, Y, cfg,
+        pca_variance=args.pca_variance,
+        inducing=args.inducing,
+        inducing_opt_steps=args.inducing_opt_steps,
+        restart_chunk=args.restart_chunk,
+        row_chunk=args.row_chunk,
+        noise=noise,
+        gradients=gradients,
+    )
+    write_snapshot_auto(args.state_file, emu, param_names=mf.param_names,
+                        output_names=mf.output_names)
+    if not args.quiet:
+        print(
+            f"wrote {args.state_file}: sparse (SGPR), "
+            f"{emu.n_components} component(s), m={emu.Z.shape[0]} "
+            f"inducing, N={mf.npoints}, d={mf.nparams}, t={mf.noutputs}",
+            file=sys.stderr,
+        )
+    return 0
+
+
 def _read_container(path: str):
-    """(emulator, param names, output names) of a dense snapshot (text or
-    .npz), on the CPU in float64: the matrix-free container, which skips
-    the serve-time factorizations, or for a gradient-enhanced (version 3)
+    """(emulator, param names, output names) of a snapshot (text or .npz),
+    on the CPU in float64: the matrix-free container, which skips the
+    serve-time factorizations, or for a gradient-enhanced (version 3)
     snapshot, which has none, the dense emulator (joint systems are small
-    by construction), as the JAX CLI's convert does."""
+    by construction), as the JAX CLI's convert does; a sparse snapshot is
+    its serve state."""
     import torch
 
     from madaiemulator_tpu_torch.io.snapshot import read_snapshot_auto
@@ -405,6 +520,7 @@ def cmd_print_thetas(args) -> int:
 
 def cmd_convert(args) -> int:
     from madaiemulator_tpu_torch.io.snapshot import write_snapshot_auto
+    from madaiemulator_tpu_torch.models.sparse import is_sparse
 
     try:
         emu, param_names, output_names = _read_container(args.in_state)
@@ -412,11 +528,14 @@ def cmd_convert(args) -> int:
         return _error(f"{args.in_state}: {e}")
     write_snapshot_auto(args.out_state, emu, param_names=param_names,
                         output_names=output_names)
-    print(
-        f"wrote {args.out_state}: {emu.n_components} component(s), "
-        f"N={emu.X.shape[0]}, d={emu.X.shape[1]}, t={len(output_names)}",
-        file=sys.stderr,
-    )
+    if is_sparse(emu):
+        desc = (f"sparse (SGPR), {emu.n_components} component(s), "
+                f"m={emu.Z.shape[0]} inducing, d={emu.Z.shape[1]}, "
+                f"t={len(output_names)}")
+    else:
+        desc = (f"{emu.n_components} component(s), N={emu.X.shape[0]}, "
+                f"d={emu.X.shape[1]}, t={len(output_names)}")
+    print(f"wrote {args.out_state}: {desc}", file=sys.stderr)
     return 0
 
 
@@ -430,6 +549,10 @@ def cmd_interactive_mode(args) -> int:
         predict_multivariate,
         predict_multivariate_fast,
         predict_multivariate_iterative,
+    )
+    from madaiemulator_tpu_torch.models.sparse import (
+        is_sparse,
+        predict_multivariate_sparse,
     )
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -447,7 +570,17 @@ def cmd_interactive_mode(args) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     predict = predict_multivariate
-    if iterative:
+    if is_sparse(emu):
+        if args.serve_method != "dense":
+            print(
+                "error: sparse (SGPR) snapshots already serve from an "
+                "O(m^2) state — there is no fast/iterative variant; drop "
+                f"--serve_method={args.serve_method}",
+                file=sys.stderr,
+            )
+            return 2
+        predict = predict_multivariate_sparse
+    elif iterative:
         # the serving cache (preconditioners + training solves), built once
         iter_states = precompute_iterative_multivariate(
             emu, rank=args.rank, cg_tol=args.cg_tol,
@@ -550,6 +683,147 @@ def cmd_interactive_mode(args) -> int:
     return 0
 
 
+def _write_table(path: str, head: str, names: List[str], cols) -> None:
+    """The per-point table of `validate --output`: a '#' header naming the
+    mean, variance and truth columns of every observable, then one row per
+    point, "%.17g"."""
+    labels = [f"{k}_{s}" for k in cols for s in names]
+    arrays = [np.asarray(a.detach().cpu() if hasattr(a, "detach") else a)
+              for a in cols.values()]
+    with open(path, "w") as f:
+        f.write(f"# {head}: " + " ".join(labels) + "\n")
+        for i in range(arrays[0].shape[0]):
+            row = np.concatenate([a[i] for a in arrays])
+            f.write(" ".join(f"{v:.17g}" for v in row) + "\n")
+
+
+def _validate_sparse(emu, output_names, args, dtype, dev) -> int:
+    """Training-residual validation of a sparse (SGPR) snapshot against
+    --model_file: the O(m^2) serve state keeps no training arrays, and an
+    SGPR posterior has m << N effective degrees of freedom, so its training
+    residuals measure real out-of-subspace error (its Titsias variance is
+    conservative: coverage should sit at or above target)."""
+    import torch
+
+    from madaiemulator_tpu_torch.io.modelfile import read_model_file
+    from madaiemulator_tpu_torch.models.diagnostics import (
+        training_residuals_sparse,
+        validation_summary,
+    )
+
+    if args.holdout is not None or args.matrix_free:
+        return _error(
+            "--holdout/--matrix_free do not apply to sparse (SGPR) "
+            "snapshots — the serve state cannot be rebuilt on a subset "
+            "(no training arrays); refit with fit_multivariate_sparse on "
+            "the held-in subset instead")
+    if args.model_file is None:
+        return _error(
+            "validating a sparse snapshot requires --model_file (the O(m^2) "
+            "serve state carries no training outputs to score against)")
+    mf = read_model_file(args.model_file)
+    if mf.Y.shape[1] != len(output_names):
+        return _error(f"model file holds {mf.Y.shape[1]} outputs but the "
+                      f"snapshot serves {len(output_names)}")
+    if mf.X.shape[1] != emu.Z.shape[1]:
+        return _error(
+            f"model file has {mf.X.shape[1]} parameters but the snapshot's "
+            f"inducing points live in {emu.Z.shape[1]} dimensions — wrong "
+            "model file for this snapshot")
+    mean, var = training_residuals_sparse(
+        emu, torch.tensor(mf.X, dtype=dtype, device=dev))
+    Y_true = torch.tensor(mf.Y, dtype=dtype)
+    s = validation_summary(mean, var, Y_true, interval=args.interval)
+    m = emu.Z.shape[0]
+    print(f"# sparse training-residual validation (SGPR, m={m} inducing "
+          f"points — residuals measure out-of-subspace error; variance "
+          f"is the conservative Titsias bound): N={mf.X.shape[0]}, "
+          f"t={len(output_names)}, r={emu.n_components}")
+    for k, v in s.items():
+        print(f"{k} {v:.17g}")
+    if args.output is not None:
+        _write_table(args.output, "per-point sparse training residuals",
+                     output_names, {"mean": mean, "variance": var,
+                                    "true": Y_true})
+    return 0
+
+
+def cmd_validate(args) -> int:
+    import torch
+
+    from madaiemulator_tpu_torch.io.modelfile import read_model_file
+    from madaiemulator_tpu_torch.io.snapshot import read_snapshot_auto
+    from madaiemulator_tpu_torch.models.diagnostics import (
+        holdout_cv_multivariate,
+        loo_cv_multivariate,
+        reconstruct_training_outputs,
+        validation_summary,
+    )
+    from madaiemulator_tpu_torch.models.sparse import is_sparse
+
+    if args.matrix_free and args.holdout is None:
+        return _error("--matrix_free requires --holdout M (closed-form LOO "
+                      "needs diag(C^-1), a dense-only quantity)")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        return _error("CUDA device not available")
+    dtype = torch.float64 if args.dtype == "float64" else torch.float32
+    dev = torch.device(args.device)
+    try:
+        emu, param_names, output_names = read_snapshot_auto(
+            args.state_file, device=dev, dtype=dtype,
+            build_states=not args.matrix_free)
+    except ValueError as e:
+        # a gradient-enhanced (v3) snapshot with --matrix_free, or a
+        # multi-fidelity one (not yet ported)
+        return _error(str(e))
+    if is_sparse(emu):
+        return _validate_sparse(emu, output_names, args, dtype, dev)
+    Y_true = None
+    if args.model_file is not None:
+        mf = read_model_file(args.model_file)
+        if mf.Y.shape != (emu.X.shape[0], len(output_names)):
+            return _error(
+                f"model file holds {mf.Y.shape} outputs but the snapshot "
+                f"was trained on {(emu.X.shape[0], len(output_names))}")
+        Y_true = torch.tensor(mf.Y, dtype=dtype, device=dev)
+    try:
+        if args.holdout is not None:
+            idx, loo_mean, loo_var = holdout_cv_multivariate(
+                emu, torch.Generator().manual_seed(args.seed), args.holdout,
+                rank=args.rank, cg_tol=args.cg_tol,
+                cg_max_iters=args.cg_max_iters)
+        else:
+            idx = None
+            res, loo_mean, loo_var = loo_cv_multivariate(emu)
+            ok = res.ok.cpu().numpy()
+            if not ok.all():
+                raise ValueError(
+                    f"component(s) {np.flatnonzero(~ok).tolist()} have no "
+                    "valid factorization")
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    if Y_true is None:
+        Y_true = reconstruct_training_outputs(emu)
+    if idx is not None:
+        Y_true = Y_true[torch.tensor(idx, device=Y_true.device)]
+    s = validation_summary(loo_mean, loo_var, Y_true, interval=args.interval)
+    basis = ("raw training outputs (incl. PCA truncation error)"
+             if args.model_file is not None
+             else "retained-PCA reconstruction (GP error only)")
+    kind = (f"holdout({args.holdout}) validation" if idx is not None
+            else "LOO validation")
+    print(f"# {kind} vs {basis}: N={emu.X.shape[0]}, "
+          f"t={len(output_names)}, r={emu.n_components}")
+    for k, v in s.items():
+        print(f"{k} {v:.17g}")
+    if args.output is not None:
+        _write_table(args.output, "per-point LOO", output_names,
+                     {"loo_mean": loo_mean, "loo_variance": loo_var,
+                      "true": Y_true})
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = _build_parser().parse_args(argv)
     commands = {
@@ -557,6 +831,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         "interactive_mode": cmd_interactive_mode,
         "print_thetas": cmd_print_thetas,
         "convert": cmd_convert,
+        "validate": cmd_validate,
     }
     try:
         return commands[args.command](args)

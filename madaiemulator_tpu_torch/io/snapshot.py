@@ -24,8 +24,12 @@ other. The text grammar:
 '#' starts a comment that runs to the end of its line; floats are written
 "%.17g" so float64 round-trips exactly. The .npz holds the same payload
 as arrays under the JAX writer's keys (`write_snapshot_npz`; version 3 adds
-dZ_pc and dZ_noise_pc, each (N, d, r)). The multi-fidelity and sparse
-grammars, in either encoding, are not yet ported and raise ValueError.
+dZ_pc and dZ_noise_pc, each (N, d, r)).
+
+The sparse (SGPR) grammar (`write_snapshot_sparse` and the readers below)
+stores the O(m^2) serve state itself, not the training set. The
+multi-fidelity grammar, in either encoding, is not yet ported and raises
+ValueError.
 """
 
 from __future__ import annotations
@@ -37,17 +41,25 @@ import torch
 
 from madaiemulator_tpu_torch.models.multivariate import (
     MultivariateEmulator,
+    PCAState,
     emulator_from_numpy,
 )
+from madaiemulator_tpu_torch.models.sparse import (
+    SGPRServeState,
+    SparseMultivariateEmulator,
+)
+from madaiemulator_tpu_torch.ops.kernels import GPParams
 from madaiemulator_tpu_torch.utils.config import COVARIANCE_CLI_NAMES, GPConfig
+from madaiemulator_tpu_torch.utils.designs import DesignScaling
 
 MAGIC = "MADAIEMULATOR_TPU_SNAPSHOT"
 VERSION = 1
 VERSION_NOISE = 2  # version 1 + a trailing (N x r) PC-space noise block
 VERSION_GRADIENTS = 3  # + header flags and the PC-space gradient blocks
+MAGIC_SGPR = "MADAIEMULATOR_TPU_SNAPSHOT_SGPR"
+VERSION_SGPR = 1
 _OTHER_MAGICS = {
     "MADAIEMULATOR_TPU_SNAPSHOT_MF": "multi-fidelity",
-    "MADAIEMULATOR_TPU_SNAPSHOT_SGPR": "sparse (SGPR)",
 }
 
 
@@ -204,6 +216,9 @@ def read_snapshot(
     first = toks.one()
     if first in _OTHER_MAGICS:
         raise ValueError(f"{_OTHER_MAGICS[first]} snapshots are not yet ported")
+    if first == MAGIC_SGPR:
+        raise ValueError("a sparse (SGPR) snapshot: use read_snapshot_sparse "
+                         "or read_snapshot_auto")
     if first != MAGIC:
         raise ValueError("not a madaiemulator_tpu snapshot")
     version = int(toks.one())
@@ -319,6 +334,9 @@ def read_snapshot_npz(
         if magic in _OTHER_MAGICS:
             raise ValueError(
                 f"{_OTHER_MAGICS[magic]} snapshots are not yet ported")
+        if magic == MAGIC_SGPR:
+            raise ValueError("a sparse (SGPR) .npz snapshot: use "
+                             "read_snapshot_sparse_npz or read_snapshot_auto")
         if magic != MAGIC:
             raise ValueError("not a madaiemulator_tpu npz snapshot")
         _check_version(int(z["version"][0]))
@@ -348,12 +366,17 @@ def read_snapshot_npz(
 
 def write_snapshot_auto(
     dest: str,
-    emu: MultivariateEmulator,
+    emu,
     param_names: List[str] | None = None,
     output_names: List[str] | None = None,
 ) -> None:
-    """'.npz' -> `write_snapshot_npz`, anything else -> the text format."""
-    writer = write_snapshot_npz if dest.endswith(".npz") else write_snapshot
+    """Dispatch on the container (dense multivariate or sparse) and on the
+    extension ('.npz' -> binary, anything else -> text)."""
+    npz = dest.endswith(".npz")
+    if isinstance(emu, SparseMultivariateEmulator):
+        writer = write_snapshot_sparse_npz if npz else write_snapshot_sparse
+    else:
+        writer = write_snapshot_npz if npz else write_snapshot
     writer(dest, emu, param_names, output_names)
 
 
@@ -362,9 +385,290 @@ def read_snapshot_auto(
     device,
     dtype: torch.dtype = torch.float64,
     build_states: bool = True,
-) -> Tuple[MultivariateEmulator, List[str], List[str]]:
-    """'.npz' -> `read_snapshot_npz`, anything else -> `read_snapshot`.
-    Both read the snapshot's own magic and reject the grammars that are not
-    yet ported (multi-fidelity, sparse) with ValueError."""
-    reader = read_snapshot_npz if source.endswith(".npz") else read_snapshot
-    return reader(source, device, dtype=dtype, build_states=build_states)
+):
+    """Dispatch on the snapshot's own magic and on the extension ('.npz'
+    -> binary, anything else -> text): a sparse (SGPR) snapshot returns a
+    `SparseMultivariateEmulator` (its payload is the serve state;
+    build_states does not apply), a dense one what `read_snapshot` /
+    `read_snapshot_npz` return. The multi-fidelity grammar raises
+    ValueError (not yet ported). Returns (emulator, param_names,
+    output_names)."""
+    if source.endswith(".npz"):
+        with np.load(source, allow_pickle=False) as z:
+            magic = str(z["magic"][0])
+        if magic == MAGIC_SGPR:
+            return read_snapshot_sparse_npz(source, device, dtype=dtype)
+        return read_snapshot_npz(source, device, dtype=dtype,
+                                 build_states=build_states)
+    with open(source, "r") as f:
+        head = f.readline().split()
+    if head and head[0] == MAGIC_SGPR:
+        return read_snapshot_sparse(source, device, dtype=dtype)
+    return read_snapshot(source, device, dtype=dtype,
+                         build_states=build_states)
+
+
+# --- Sparse (SGPR) snapshots -------------------------------------------------
+#
+# Grammar (text; '#' comments; floats %.17g), the JAX package's:
+#
+#     MADAIEMULATOR_TPU_SNAPSHOT_SGPR 1
+#     covariance <family> ; power_exp_alpha ; regression_order ;
+#     predict_variance_includes_nugget ; pca_standardize
+#     nparams <d> ; noutputs <t> ; ninducing <m> ; ncomponents <r>
+#     param names (d), output names (t)
+#     design scaling (mins; ranges)
+#     pca: ymean; ystd; eigenvalues; U (t x r)
+#     Z (m x d)                          shared inducing points, scaled
+#     thetas (r x ntheta)                [amp nugget ls...] natural space
+#     per component c = 0..r-1:
+#         Lm (m x m)  lower chol(K_mm + jitter)
+#         LB (m x m)  lower chol(I + A A^T)
+#         c  (m)      LB^-1 A D^-1/2 (y - H beta)
+#         beta (p)    GLS trend coefficients   (p = 1 + order*d)
+#         LA (p x p)  lower chol(H^T Sigma^-1 H)
+#         E  (m x p)  GLS variance operator
+#
+# The payload IS the serve state (models.sparse.SGPRServeState): a sparse
+# fit's training set can be a million points. Lm is stored rather than
+# rebuilt, so a state fitted at one dtype serves consistently at another.
+
+
+def _check_sparse_ok(emu: SparseMultivariateEmulator) -> None:
+    """Refuse to persist failed factorizations: `_sgpr_system` substitutes
+    identity placeholders where a Cholesky fails (ok False), and neither the
+    readers nor native/ have an ok flag."""
+    ok = _np(emu.states.ok).reshape(-1)
+    if not bool(np.all(ok)):
+        bad = [int(i) for i in np.nonzero(~ok)[0]]
+        raise ValueError(
+            f"write_snapshot_sparse: component(s) {bad} carry FAILED "
+            "factorizations (state.ok=False — identity placeholder "
+            "factors); refusing to persist. Refit with different "
+            "hyperparameter bounds or more restarts."
+        )
+
+
+def _sparse_header(emu: SparseMultivariateEmulator, param_names,
+                   output_names):
+    m, d = emu.Z.shape
+    t = emu.n_outputs
+    return (list(param_names or [f"param_{i}" for i in range(d)]),
+            list(output_names or [f"output_{j}" for j in range(t)]),
+            # derived from the state: standardize=False stores ystd = ones
+            bool(np.any(_np(emu.pca.ystd) != 1.0)))
+
+
+def write_snapshot_sparse(
+    dest: Union[str, TextIO],
+    emu: SparseMultivariateEmulator,
+    param_names: List[str] | None = None,
+    output_names: List[str] | None = None,
+) -> None:
+    """Persist a `SparseMultivariateEmulator` (the text grammar above; the
+    JAX writer's bytes)."""
+    _check_sparse_ok(emu)
+    if isinstance(dest, str):
+        with open(dest, "w") as f:
+            write_snapshot_sparse(f, emu, param_names, output_names)
+        return
+    cfg = emu.config
+    m, d = emu.Z.shape
+    t = emu.n_outputs
+    r = emu.n_components
+    param_names, output_names, standardize = _sparse_header(
+        emu, param_names, output_names)
+    thetas = np.concatenate(
+        [
+            np.exp(_np(emu.params.log_amp))[:, None],
+            np.exp(_np(emu.params.log_nugget))[:, None],
+            np.exp(_np(emu.params.log_ls)).reshape(r, -1),
+        ],
+        axis=1,
+    )
+    w = dest.write
+    w(f"{MAGIC_SGPR} {VERSION_SGPR}\n")
+    w(f"covariance {cfg.covariance.value}\n")
+    w(f"power_exp_alpha {cfg.power_exp_alpha:.17g}\n")
+    w(f"regression_order {cfg.regression_order}\n")
+    w(f"predict_variance_includes_nugget "
+      f"{int(cfg.predict_variance_includes_nugget)}\n")
+    w(f"pca_standardize {int(standardize)}\n")
+    w(f"nparams {d}\nnoutputs {t}\nninducing {m}\nncomponents {r}\n")
+    for s in param_names + output_names:
+        w(f"{s}\n")
+    w("# design scaling (mins; ranges)\n")
+    w(_fmt_vec(_np(emu.scaling.mins)) + "\n")
+    w(_fmt_vec(_np(emu.scaling.ranges)) + "\n")
+    w("# pca: ymean; ystd; eigenvalues; U (t x r)\n")
+    w(_fmt_vec(_np(emu.pca.ymean)) + "\n")
+    w(_fmt_vec(_np(emu.pca.ystd)) + "\n")
+    w(_fmt_vec(_np(emu.pca.eigenvalues)) + "\n")
+    w(_fmt_mat(_np(emu.pca.U)) + "\n")
+    w("# inducing points Z (m x d), scaled\n")
+    w(_fmt_mat(_np(emu.Z)) + "\n")
+    w("# thetas per component (r x ntheta) [amp nugget ls...]\n")
+    w(_fmt_mat(thetas) + "\n")
+    st = SGPRServeState(*(_np(a) for a in emu.states))
+    for c in range(r):
+        w(f"# component {c}: Lm; LB; c; beta; LA; E\n")
+        w(_fmt_mat(st.Lm[c]) + "\n")
+        w(_fmt_mat(st.LB[c]) + "\n")
+        w(_fmt_vec(st.c[c]) + "\n")
+        w(_fmt_vec(st.beta[c]) + "\n")
+        w(_fmt_mat(st.LA[c]) + "\n")
+        w(_fmt_mat(st.E[c]) + "\n")
+
+
+def _sparse_emulator(arrays, cfg: GPConfig, device,
+                     dtype) -> SparseMultivariateEmulator:
+    """The shared tail of both sparse readers: numpy arrays (the npz keys)
+    -> the container on `device`, every factorization flagged ok (only
+    successful ones are ever written)."""
+    def t(key):  # a copy: the caller's arrays may be read-only views
+        return torch.tensor(np.asarray(arrays[key]), dtype=dtype,
+                            device=device)
+
+    Z = t("Z")
+    r, m, _ = np.shape(arrays["Lm"])
+    states = SGPRServeState(
+        Z=Z.expand(r, *Z.shape), Lm=t("Lm"), LB=t("LB"), c=t("c"),
+        beta=t("beta"), LA=t("LA"), E=t("E"),
+        ok=torch.ones((r,), dtype=torch.bool, device=device))
+    return SparseMultivariateEmulator(
+        scaling=DesignScaling(mins=t("mins"), ranges=t("ranges")),
+        pca=PCAState(ymean=t("ymean"), ystd=t("ystd"),
+                     eigenvalues=t("eigenvalues"), U=t("U")),
+        Z=Z,
+        params=GPParams(log_amp=t("log_amp"), log_nugget=t("log_nugget"),
+                        log_ls=t("log_ls")),
+        states=states, config=cfg)
+
+
+def read_snapshot_sparse(
+    source: Union[str, TextIO],
+    device,
+    dtype: torch.dtype = torch.float64,
+) -> Tuple[SparseMultivariateEmulator, List[str], List[str]]:
+    """Load a sparse snapshot, ready to serve on `device` (nothing is
+    rebuilt). Returns (SparseMultivariateEmulator, param_names,
+    output_names)."""
+    if isinstance(source, str):
+        with open(source, "r") as f:
+            return read_snapshot_sparse(f, device, dtype)
+    toks = _Tokens(source.read())
+    if toks.one() != MAGIC_SGPR:
+        raise ValueError("not a sparse (SGPR) snapshot")
+    version = int(toks.one())
+    if version != VERSION_SGPR:
+        raise ValueError(f"unsupported sparse snapshot version {version}")
+    cov = COVARIANCE_CLI_NAMES[toks.expect("covariance")]
+    alpha = float(toks.expect("power_exp_alpha"))
+    order = int(toks.expect("regression_order"))
+    pred_nug = bool(int(toks.expect("predict_variance_includes_nugget")))
+    toks.expect("pca_standardize")  # metadata: ystd carries the effect
+    d = int(toks.expect("nparams"))
+    t = int(toks.expect("noutputs"))
+    m = int(toks.expect("ninducing"))
+    r = int(toks.expect("ncomponents"))
+    param_names = toks.take(d)
+    output_names = toks.take(t)
+    arrays = {
+        "mins": toks.mat(1, d)[0],
+        "ranges": toks.mat(1, d)[0],
+        "ymean": toks.mat(1, t)[0],
+        "ystd": toks.mat(1, t)[0],
+        "eigenvalues": toks.mat(1, r)[0],
+        "U": toks.mat(t, r),
+        "Z": toks.mat(m, d),
+    }
+    th = toks.mat(r, 2 + cov.num_length_scales(d))
+    arrays["log_amp"] = np.log(th[:, 0])
+    arrays["log_nugget"] = np.log(th[:, 1])
+    arrays["log_ls"] = np.log(th[:, 2:])
+    p = 1 + order * d
+    blocks = {"Lm": [], "LB": [], "c": [], "beta": [], "LA": [], "E": []}
+    for _ in range(r):
+        blocks["Lm"].append(toks.mat(m, m))
+        blocks["LB"].append(toks.mat(m, m))
+        blocks["c"].append(toks.mat(1, m)[0])
+        blocks["beta"].append(toks.mat(1, p)[0])
+        blocks["LA"].append(toks.mat(p, p))
+        blocks["E"].append(toks.mat(m, p))
+    arrays.update({k: np.stack(v) for k, v in blocks.items()})
+    cfg = GPConfig(nparams=d, covariance=cov, regression_order=order,
+                   power_exp_alpha=alpha,
+                   predict_variance_includes_nugget=pred_nug)
+    return (_sparse_emulator(arrays, cfg, device, dtype), param_names,
+            output_names)
+
+
+def write_snapshot_sparse_npz(
+    dest: str,
+    emu: SparseMultivariateEmulator,
+    param_names: List[str] | None = None,
+    output_names: List[str] | None = None,
+) -> None:
+    """Binary sparse snapshot: the text grammar's payload under the JAX
+    writer's keys and dtypes."""
+    _check_sparse_ok(emu)
+    cfg = emu.config
+    param_names, output_names, standardize = _sparse_header(
+        emu, param_names, output_names)
+    st = emu.states
+    np.savez_compressed(
+        dest,
+        magic=np.array([MAGIC_SGPR]),
+        version=np.array([VERSION_SGPR]),
+        covariance=np.array([cfg.covariance.value]),
+        power_exp_alpha=np.array([cfg.power_exp_alpha]),
+        regression_order=np.array([cfg.regression_order]),
+        predict_variance_includes_nugget=np.array(
+            [int(cfg.predict_variance_includes_nugget)]),
+        pca_standardize=np.array([int(standardize)]),
+        param_names=np.array(param_names),
+        output_names=np.array(output_names),
+        mins=_np(emu.scaling.mins),
+        ranges=_np(emu.scaling.ranges),
+        ymean=_np(emu.pca.ymean),
+        ystd=_np(emu.pca.ystd),
+        eigenvalues=_np(emu.pca.eigenvalues),
+        U=_np(emu.pca.U),
+        Z=_np(emu.Z),
+        log_amp=_np(emu.params.log_amp),
+        log_nugget=_np(emu.params.log_nugget),
+        log_ls=_np(emu.params.log_ls),
+        Lm=_np(st.Lm),
+        LB=_np(st.LB),
+        c=_np(st.c),
+        beta=_np(st.beta),
+        LA=_np(st.LA),
+        E=_np(st.E),
+    )
+
+
+def read_snapshot_sparse_npz(
+    source: str,
+    device,
+    dtype: torch.dtype = torch.float64,
+) -> Tuple[SparseMultivariateEmulator, List[str], List[str]]:
+    """Binary twin of `read_snapshot_sparse`."""
+    with np.load(source, allow_pickle=False) as z:
+        if (str(z["magic"][0]) != MAGIC_SGPR
+                or int(z["version"][0]) != VERSION_SGPR):
+            raise ValueError("not a sparse (SGPR) .npz snapshot")
+        cfg = GPConfig(
+            nparams=int(z["mins"].shape[0]),
+            covariance=COVARIANCE_CLI_NAMES[str(z["covariance"][0])],
+            regression_order=int(z["regression_order"][0]),
+            power_exp_alpha=float(z["power_exp_alpha"][0]),
+            predict_variance_includes_nugget=bool(
+                int(z["predict_variance_includes_nugget"][0])),
+        )
+        arrays = {k: z[k] for k in (
+            "mins", "ranges", "ymean", "ystd", "eigenvalues", "U", "Z",
+            "log_amp", "log_nugget", "log_ls", "Lm", "LB", "c", "beta", "LA",
+            "E")}
+        names = (list(map(str, z["param_names"])),
+                 list(map(str, z["output_names"])))
+        return (_sparse_emulator(arrays, cfg, device, dtype), *names)

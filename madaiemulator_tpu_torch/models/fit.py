@@ -130,16 +130,19 @@ def _unflatten(u: torch.Tensor) -> GPParams:
 
 
 def _lane_objective(X, y, noise, config: GPConfig, lo, hi, stats: dict,
-                    dY=None, dY_noise=None):
+                    dY=None, dY_noise=None, lml_fn=None):
     """Batched objective of (B, P) iterates, lane b fitting targets y[b]
     (gradients dY[b], if given) on design X[b] (X (N, d) and y (N,) may be
-    shared by every lane): (value_and_grad, value) closures over
-    -log_marginal_likelihood, counting their calls in `stats`."""
+    shared by every lane): (value_and_grad, value) closures over -lml_fn
+    (default `log_marginal_likelihood`; any (params, data, config) -> (B,)
+    log-likelihood differentiable by torch autograd), counting their calls
+    in `stats`."""
     data = GPData(X=X, y=y, noise=noise, dY=dY, dY_noise=dY_noise)
+    if lml_fn is None:
+        lml_fn = log_marginal_likelihood
 
     def negll(u):
-        return -log_marginal_likelihood(_u_to_params(_unflatten(u), lo, hi),
-                                        data, config)
+        return -lml_fn(_u_to_params(_unflatten(u), lo, hi), data, config)
 
     def value_and_grad(u):
         u = u.detach().requires_grad_(True)
@@ -172,6 +175,7 @@ def fit_one_start(
     stats: dict | None = None,
     dY: torch.Tensor | None = None,
     dY_noise: torch.Tensor | None = None,
+    lml_fn=None,
 ) -> Tuple[GPParams, torch.Tensor]:
     """LBFGS trajectories from a batch of unconstrained starts u0 (leading
     lane axis B), all in lock step (`models.lbfgs.run_lbfgs`, optax's
@@ -184,12 +188,14 @@ def fit_one_start(
     Returns (best_u, best_neg_loglik (B,)) in u0's dtype. The JAX
     function's h_extra is not yet ported.
     `stats`, when given, accumulates the objective evaluation counts.
+    `lml_fn` overrides the objective as in `fit_gp_host` (the sparse fit
+    passes its ELBO); None is `log_marginal_likelihood`.
     """
     dtype = y.dtype
     lo, hi = _bounds_arrays(config, dtype, X.device)
     stats = _new_stats() if stats is None else stats
     vg, v = _lane_objective(X, y, noise, config, lo, hi, stats, dY=dY,
-                            dY_noise=dY_noise)
+                            dY_noise=dY_noise, lml_fn=lml_fn)
     res = lbfgs.run_lbfgs(
         _flatten_t(u0).to(device=X.device, dtype=dtype), vg, v, max_steps,
         segments=(1, 1, config.num_length_scales),

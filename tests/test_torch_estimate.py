@@ -407,9 +407,12 @@ def _mf_file(tmp_path):
 
 
 def _sgpr_state(tmp_path):
-    p = tmp_path / "sgpr.txt"
-    p.write_text("MADAIEMULATOR_TPU_SNAPSHOT_SGPR 1\n")
-    return str(p)
+    """A sparse (SGPR) snapshot of the 1-D sin model, by the port's CLI."""
+    p = str(tmp_path / "sgpr.txt")
+    assert tcli.main(["estimate_thetas", SIN1D, p, "--inducing", "8",
+                      "--restarts", "2", "--steps", "2", "--device", "cpu",
+                      "--quiet"]) == 0
+    return p
 
 
 def _mf_npz_state(tmp_path):
@@ -428,7 +431,7 @@ def _mf_state(tmp_path):
 
 
 UNPORTED = {
-    # the matrix-free fit is ported; the sparse fit it excludes is not
+    # the sparse fit is ported; what it excludes exits 2 with JAX's line
     "fit_method": lambda tmp: ["estimate_thetas", SIN1D, "s.txt",
                                "--fit_method", "iterative", "--inducing",
                                "8"],
@@ -441,12 +444,19 @@ UNPORTED = {
     "print_thetas_sgpr": lambda tmp: ["print_thetas", _sgpr_state(tmp)],
     "convert_sgpr": lambda tmp: ["convert", _sgpr_state(tmp), "o.txt"],
     "convert_to_npz": lambda tmp: ["convert", _mf_state(tmp), "o.npz"],
+    # the JAX CLI's sparse tuning flags, honoured by the sparse fit
+    "tuning_inducing_opt_steps": lambda tmp: [
+        "estimate_thetas", SIN1D, "s.txt", "--inducing", "8",
+        "--inducing_opt_steps", "1"],
+    "tuning_row_chunk": lambda tmp: [
+        "estimate_thetas", SIN1D, "s.txt", "--inducing", "8", "--row_chunk",
+        "8"],
 }
-# the JAX CLI's sparse tuning flags, which nothing reads yet
-UNPORTED.update({
-    f"tuning_{name}": (lambda name: lambda tmp: [
-        "estimate_thetas", SIN1D, "s.txt", f"--{name}", "1"])(name)
-    for name in tcli._UNPORTED_TUNING})
+# the cases whose commands are ported now: each checks that it works (the
+# sparse fit writes a sparse snapshot; print_thetas prints what the JAX CLI
+# prints; convert rewrites the snapshot's bytes)
+PORTED_NOW = ("inducing", "print_thetas_sgpr", "convert_sgpr",
+              "tuning_inducing_opt_steps", "tuning_row_chunk")
 
 
 @pytest.mark.parametrize("what", sorted(UNPORTED))
@@ -455,8 +465,31 @@ def test_unported_exits_2_with_one_line(what, tmp_path, capsys, monkeypatch):
     argv = UNPORTED[what](tmp_path)
     if argv[0] == "estimate_thetas":
         argv += ["--device", "cpu"]
+    if what in PORTED_NOW:
+        if argv[0] == "estimate_thetas":
+            argv += ["--restarts", "2", "--steps", "2"]
+        capsys.readouterr()
+        assert tcli.main(argv) == 0
+        out = capsys.readouterr().out
+        if argv[0] == "estimate_thetas":
+            assert (tmp_path / "s.txt").read_text().startswith(
+                tsnap.MAGIC_SGPR + " 1\n")
+        elif argv[0] == "print_thetas":
+            monkeypatch.setenv("MADAI_COMPILE_CACHE", "off")
+            assert jcli.main(argv) == 0
+            assert out == capsys.readouterr().out
+            assert out.startswith("# 1 component(s)")
+        else:
+            assert ((tmp_path / "o.txt").read_bytes()
+                    == pathlib.Path(argv[1]).read_bytes())
+        return
     assert tcli.main(argv) == 2
     err = capsys.readouterr().err.splitlines()
     assert len(err) == 1 and err[0].startswith("error: ")
-    assert "not" in err[0] and "ported" in err[0]
+    if what == "fit_method":
+        assert err == ["error: --inducing (sparse SGPR) excludes "
+                       "--fit_method=iterative and --alpha_grid "
+                       "(models/sparse.py)"]
+    else:
+        assert "not" in err[0] and "ported" in err[0]
     assert not (tmp_path / "s.txt").exists()

@@ -110,10 +110,33 @@ def test_noise_snapshot_v2_cross_reads(tmp_path):
     ("MADAIEMULATOR_TPU_SNAPSHOT_SGPR 1\n", "sparse"),
 ])
 def test_unported_snapshots_raise(tmp_path, head, what):
+    """The multi-fidelity grammar is not read yet. The sparse one is (its
+    case checks it): read_snapshot_auto returns the sparse emulator, which
+    serves what was written, and the dense reader points to it."""
     p = tmp_path / "s.txt"
-    p.write_text(head + "covariance matern32\n")
-    with pytest.raises(ValueError, match=what):
-        tsnap.read_snapshot(str(p), device=CPU)
+    if what == "sparse":
+        from madaiemulator_tpu_torch.models import sparse as ts
+
+        rng = np.random.default_rng(6)
+        X = rng.uniform(size=(20, 2))
+        Y = np.stack([np.sin(3 * X[:, 0]), X[:, 1] ** 2], axis=1)
+        emu = ts.fit_multivariate_sparse(
+            torch.Generator().manual_seed(0), torch.tensor(X),
+            torch.tensor(Y), tcfg.GPConfig(nparams=2, n_restarts=2,
+                                           max_opt_steps=3), inducing=5)
+        tsnap.write_snapshot_auto(str(p), emu)
+        assert p.read_text().startswith(head)
+        got, _, _ = tsnap.read_snapshot_auto(str(p), device=CPU)
+        q = rng.uniform(size=(4, 2))
+        for a, b in zip(ts.predict_multivariate_sparse(got, q),
+                        ts.predict_multivariate_sparse(emu, q)):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12)
+        with pytest.raises(ValueError, match="read_snapshot_sparse"):
+            tsnap.read_snapshot(str(p), device=CPU)
+    else:
+        p.write_text(head + "covariance matern32\n")
+        with pytest.raises(ValueError, match=what):
+            tsnap.read_snapshot(str(p), device=CPU)
     with pytest.raises(ValueError, match="npz"):
         tsnap.read_snapshot(str(tmp_path / "s.npz"), device=CPU)
 
@@ -255,6 +278,9 @@ def test_port_imports_no_jax():
         "import madaiemulator_tpu_torch.cli, madaiemulator_tpu_torch.io.snapshot\n"
         "import madaiemulator_tpu_torch.models.multivariate\n"
         "import madaiemulator_tpu_torch.models.fit\n"
+        "import madaiemulator_tpu_torch.models.sparse\n"
+        "import madaiemulator_tpu_torch.models.diagnostics\n"
+        "import madaiemulator_tpu_torch.models.design\n"
         "import madaiemulator_tpu_torch.parallel.ensemble\n"
         "import madaiemulator_tpu_torch.ops.hopper.build\n"
         "import madaiemulator_tpu_torch.ops.hopper.cholesky\n"

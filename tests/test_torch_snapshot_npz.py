@@ -23,6 +23,7 @@ from madaiemulator_tpu.models import multivariate as jmv
 from madaiemulator_tpu_torch import cli as tcli
 from madaiemulator_tpu_torch.io import snapshot as tsnap
 from madaiemulator_tpu_torch.models import multivariate as tmv
+from madaiemulator_tpu_torch.models import sparse as ts
 from madaiemulator_tpu_torch.utils import config as tcfg
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -174,32 +175,70 @@ def test_interactive_mode_on_npz_matches_text(pair, monkeypatch, capsys):
     assert len(npz.out.splitlines()) == 1 + 3 + 1 + 12 + 4 * 12
 
 
+def _sparse_emulator():
+    """A small sparse (SGPR) emulator fitted by the port (float64, CPU)."""
+    rng = np.random.default_rng(9)
+    X = rng.uniform(1.0, 3.0, size=(40, 2))
+    Y = np.stack([np.sin(2 * X[:, 0]) + X[:, 1], X[:, 0] * X[:, 1],
+                  np.cos(X[:, 1])], axis=1)
+    Y = Y + 0.02 * rng.standard_normal(Y.shape)
+    cfg = tcfg.GPConfig(nparams=2, regression_order=1, n_restarts=2,
+                        max_opt_steps=10)
+    return ts.fit_multivariate_sparse(
+        torch.Generator().manual_seed(0), torch.tensor(X), torch.tensor(Y),
+        cfg, pca_variance=0.999, inducing=12)
+
+
 def _npz_grammar(tmp_path, what):
-    """An .npz snapshot of a grammar the port does not read yet."""
-    magic, version = {
-        "multi-fidelity": ("MADAIEMULATOR_TPU_SNAPSHOT_MF", 1),
-        "sparse": ("MADAIEMULATOR_TPU_SNAPSHOT_SGPR", 1),
-    }[what]
+    """An .npz snapshot of another grammar than the dense one: a stub of
+    the multi-fidelity grammar (not read yet), or a real sparse one."""
     p = str(tmp_path / "state.npz")
-    np.savez(p, magic=np.array([magic]), version=np.array([version]))
+    if what == "sparse":
+        tsnap.write_snapshot_sparse_npz(p, _sparse_emulator(), ["a", "b"],
+                                        ["o0", "o1", "o2"])
+        return p
+    np.savez(p, magic=np.array(["MADAIEMULATOR_TPU_SNAPSHOT_MF"]),
+             version=np.array([1]))
     return p
 
 
 @pytest.mark.parametrize("command", ["print_thetas", "interactive_mode",
                                      "convert"])
 @pytest.mark.parametrize("what", ["multi-fidelity", "sparse"])
-def test_unported_npz_grammars_exit_2(tmp_path, capsys, command, what):
+def test_unported_npz_grammars_exit_2(tmp_path, capsys, monkeypatch, command,
+                                      what):
+    """Multi-fidelity .npz snapshots exit 2 with one line on every command;
+    sparse ones (ported) run: print_thetas prints, interactive_mode serves,
+    convert writes the sparse text grammar. The dense .npz reader refuses
+    both grammars by name."""
     state = _npz_grammar(tmp_path, what)
-    argv = {"print_thetas": [state],
-            "interactive_mode": [state, "--device", "cpu"],
-            "convert": [state, str(tmp_path / "o.txt")]}[command]
-    assert tcli.main([command] + argv) == 2
-    cap = capsys.readouterr()
-    err = cap.err.splitlines()
-    assert len(err) == 1 and err[0].startswith("error: "), err
-    assert what in err[0] and "not yet ported" in err[0]
-    assert cap.out == ""
-    assert not (tmp_path / "o.txt").exists()
+    if what == "sparse":
+        if command == "interactive_mode":
+            rc, cap = _serve(monkeypatch, capsys, "1.5 2.5\n",
+                             [state, "--device", "cpu"])
+            assert len(cap.out.splitlines()) == 1 + 2 + 1 + 6 + 6
+        else:
+            argv = [state] + ([str(tmp_path / "o.txt")]
+                              if command == "convert" else [])
+            rc = tcli.main([command] + argv)
+            cap = capsys.readouterr()
+        assert rc == 0, cap.err
+        if command == "print_thetas":
+            assert cap.out.startswith("# 3 component(s)")
+        if command == "convert":
+            assert (tmp_path / "o.txt").read_text().startswith(
+                tsnap.MAGIC_SGPR + " 1\n")
+    else:
+        argv = {"print_thetas": [state],
+                "interactive_mode": [state, "--device", "cpu"],
+                "convert": [state, str(tmp_path / "o.txt")]}[command]
+        assert tcli.main([command] + argv) == 2
+        cap = capsys.readouterr()
+        err = cap.err.splitlines()
+        assert len(err) == 1 and err[0].startswith("error: "), err
+        assert what in err[0] and "not yet ported" in err[0]
+        assert cap.out == ""
+        assert not (tmp_path / "o.txt").exists()
     with pytest.raises(ValueError, match=what):
         tsnap.read_snapshot_npz(state, device=CPU)
 
@@ -276,6 +315,37 @@ def test_port_snapshot_serves_from_native(native_lib, port_snapshot,
                             "mean_o2", "variance_o0", "variance_o1",
                             "variance_o2"]
     vals = np.asarray(lines[head:], float).reshape(q.shape[0], 6)
+    np.testing.assert_allclose(vals[:, :3], mean, rtol=NATIVE_RTOL)
+    np.testing.assert_allclose(vals[:, 3:], var, rtol=NATIVE_RTOL,
+                               atol=NATIVE_RTOL * vscale)
+
+
+def test_port_sparse_snapshot_serves_from_native(native_lib, monkeypatch,
+                                                 tmp_path):
+    """A sparse (SGPR) snapshot written by the port, served by
+    libmadai_emu.so and madai_query: the port's predictions to 1e-10."""
+    emu = _sparse_emulator()
+    state = str(tmp_path / "sgpr.txt")
+    tsnap.write_snapshot_sparse(state, emu, ["a", "b"], ["o0", "o1", "o2"])
+    served, _, _ = tsnap.read_snapshot_auto(state, device=CPU)
+    q = 1.2 + 1.6 * np.random.default_rng(3).uniform(size=(6, 2))
+    mean, var = (a.numpy() for a in ts.predict_multivariate_sparse(served,
+                                                                   q))
+    vscale = float(var.max())
+    monkeypatch.setattr(native, "_LIB_PATH", native_lib / "libmadai_emu.so")
+    monkeypatch.setattr(native, "_lib", None)
+    ne = native.NativeEmulator(state)
+    assert ne.nparams == 2 and ne.noutputs == 3
+    for i in range(q.shape[0]):
+        mc, vc = ne.query(q[i])
+        np.testing.assert_allclose(mc, mean[i], rtol=NATIVE_RTOL)
+        np.testing.assert_allclose(vc, var[i], rtol=NATIVE_RTOL,
+                                   atol=NATIVE_RTOL * vscale)
+    stdin = "\n".join(" ".join(f"{v:.17g}" for v in p) for p in q) + "\n"
+    r = subprocess.run([str(native_lib / "madai_query"), state], input=stdin,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    vals = np.asarray(r.stdout.splitlines()[10:], float).reshape(-1, 6)
     np.testing.assert_allclose(vals[:, :3], mean, rtol=NATIVE_RTOL)
     np.testing.assert_allclose(vals[:, 3:], var, rtol=NATIVE_RTOL,
                                atol=NATIVE_RTOL * vscale)
