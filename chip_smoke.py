@@ -124,14 +124,44 @@ It imports no jax. Phases, in order; any failure exits non-zero:
                versions; `validate` over the CLI with and without
                --model_file and --output, and --matrix_free --holdout on
                phase 10's N=2,048 snapshot.
+ 13. multifidelity — AR(1) co-kriging (models/multifidelity.py): the
+               Forrester acceptance case at float64 (21 cheap + 4 expensive
+               points, rmse >= 3x better than single fidelity); config 3's
+               width with a cheap level: MF_N0=2,048 runs of a biased copy
+               of phase 7's simulator (non-nested) and phase 7's 512 runs,
+               d=6, t=15, pooled PCA, 4 restarts x 40 steps a level at
+               float32 (the cheap level on the K3 route, the expensive on
+               K2), each level's fit wall, rho per component, the served
+               rmse on 1,024 held-out expensive runs against phase 7's
+               single-fidelity snapshot; the text and .npz snapshots read
+               back and served, the text one also by native/'s
+               madai_query (built in the background from the start of the
+               run), and the cause of the text one's float32 gap shown (its
+               log-parameters put back, and both read at float64); every
+               kernel on the operands the path handed it (K1's Grams and
+               crosses on both levels, K2 on the expensive level's Grams,
+               K3 on the cheap level's panels); the per-level LOO; the CLI
+               (estimate_thetas on a MULTIFIDELITY model file,
+               interactive_mode, validate).
+ 14. calibrate — in-process MCMC (models/calibrate.py) on phase 7's
+               snapshot at float32: bench/bench_calibrate.py's run (128
+               walkers x 2,000 emcee steps, y_exp = the simulator at a
+               known theta + 0.05 noise): steps/s, evaluations/s, the busy
+               share of 10 steps, acceptance, R-hat, ESS, the posterior
+               mean against the true theta; pt, rwm and hmc (500 steps
+               each); phase 13's emulator, phase 11's sparse snapshot and
+               phase 10's matrix-free emulator on its serving cache; the
+               float32 log-posterior against float64 at the same walker
+               positions; K1 on one half-move's operands for each emulator
+               kind; the CLI's calibrate with an experiment file.
 
 The launch counters are set to 0 just before each main path (phase 5's
 serve, phase 6's value+grad -> fit -> serve, phase 7's fit_multivariate,
 phase 8's fit_ensemble -> predict_ensemble, and the new paths: phase 5's
 fast serve, phase 6's fast serve and tier runs, phase 9's fit -> serve,
 phase 10's value+grad -> fit -> serve, phase 11's fit -> serve, phase
-12's config 3 / config 4 / matrix-free diagnostics) and read just after
-it. Phase 5
+12's config 3 / config 4 / matrix-free diagnostics, phase 13's fit ->
+serve and phase 14's emcee chain) and read just after it. Phase 5
 fails if a kernel of its path never launched, and requires K1 = 2 and K2 =
 1 on its fast path; phase 6 requires K3 to launch
 exactly once per diagonal panel of every factorization the path makes, and
@@ -146,7 +176,11 @@ library math); phase 11 requires K1 = restarts x (value+grad calls x
 (1 + 2C) + value calls x (1 + C)) + (1 + C) + 1 for C row chunks and
 K2 = K3 = 0; phase 12 requires K1 = K2 + 2 and K3 = 0 on config 3, one
 K1 and K3 once per panel on config 4, K1 > 0 and K2 = K3 = 0 on the
-matrix-free path. Before the last line it prints one JSON line with
+matrix-free path; phase 13 requires K1 = (e0 + 1) + 1 + (e1 + 1) + 2, K2 =
+e1 + 1 and K3 = 4 (e0 + 1) for e0 and e1 objective evaluations of the cheap
+and the expensive level (a state build each, the expensive level's column,
+two serve crosses; 4 panels of the cheap level's Gram); phase 14 requires
+K1 = 2 x steps + 1 and K2 = K3 = 0 for the emcee chain. Before the last line it prints one JSON line with
 each kernel's launches (`launches_by_path`: each path's own count;
 `launches`: config 5's where that path runs the kernel, else config 3's
 fit's, else config 4's, else the serve path's), its error against the plain
@@ -156,7 +190,9 @@ the function) and its bound (K2 also its error, time and cluster size at
 config 3's lane batch, `fit_batch`; K1 and K2 their config-5 shapes,
 `config5`; K3 its gradient path's lane batch, `gradient_batch`; K1 the
 matrix-free path's shapes, `iterative`, and the sparse path's, `sparse`;
-K2 and K3 the diagnostics' operands, `diagnostics`); the last line is
+K2 and K3 the diagnostics' operands, `diagnostics`; each kernel the
+operands of phases 13 and 14, `multifidelity` and `calibrate`); the last
+line is
 {"ok": true,
 "device": ...}.
 """
@@ -396,6 +432,64 @@ D_ITER_DIAG_TOL = 1e-4
 # <= 2e4) is held to.
 TIER_N, TIER_CONDS = 4096, (1e3, 1e4, 2e4, 1e5, 1e7)
 TIER_GATE = 5e-4
+# Multi-fidelity (phase 13). (a) The Forrester pair (tests/test_multifidelity
+# .py's acceptance case, README.md's claim) at float64: 21 cheap points and
+# 4 expensive ones; the 2-level emulator's rmse against the true
+# high-fidelity curve at least MF_GAIN_MIN times better than a 4-point
+# single-fidelity GP's. (b) Config 3's width with a cheap level: the
+# expensive level is phase 7's data (N=512 runs of
+# bench/bench_multivariate.py's heavy-ion-like simulator from --seed), the
+# cheap level MF_N0 runs of a biased copy (0.8 x the simulator + a smooth
+# bias + noise) on a design of its own (non-nested), PCA over the pooled
+# levels at C3_PCA, C3_R restarts x C3_STEPS steps a level at float32; MF_M
+# held-out expensive runs (the noiseless simulator) served against phase 7's
+# single-fidelity snapshot. The CLI's MULTIFIDELITY fit runs MF_CLI_R x
+# MF_CLI_STEPS (cut in depth: the library fit above runs the full depth;
+# 2 x 10 took 19.7 s with the process start on an NVIDIA H100 80GB HBM3).
+MF_N0, MF_M = 2048, 1024
+MF_GAIN_MIN = 3.0
+MF_CLI_R, MF_CLI_STEPS = 1, 3
+# The multivariate MF snapshot served by native/'s madai_query against the
+# port's float64 serve of the same text snapshot on the card: means over
+# their scale, variances over the largest variance.
+MF_NATIVE_TOL = 1e-6
+# The text snapshot read back at float32 and served, over the mean scale
+# and the top level's prior variance: the grammar stores natural-space
+# thetas, so the log-parameters come back a few float32 ulp off, and the
+# float32 serve at the fitted nuggets (cond ~1e7) amplifies that; measured
+# 3.8e-3 of the mean scale on an NVIDIA H100 80GB HBM3, 700 W (the
+# variance 0.15 of the largest served variance, which the fitted nuggets
+# make tiny: hence the prior scale). `_text_gap_cause` shows it there: 10
+# ulp at most; with the log-parameters put back the gap is 0; at float64
+# the text and the .npz serve 7.8e-10 of the scale apart. The .npz, which
+# holds the float32 arrays, serves equal.
+MF_TEXT_SERVE_TOL = 1e-2
+# Calibration (phase 14): bench/bench_calibrate.py's defaults (128 walkers x
+# 2,000 emcee steps, y_exp = the simulator at a known theta + 0.05 noise,
+# experimental variance 0.05^2 on every observable) on phase 7's config-3
+# snapshot at float32, the first CAL_BURN steps discarded; pt, rwm and hmc
+# CAL_OTHER_STEPS each; phase 13's MF emulator (CAL_OTHER_STEPS of emcee),
+# phase 11's N=10^6 sparse snapshot and phase 10's N=65,536 matrix-free
+# emulator on its serving cache ("precond" variances), CAL_SMALL_W walkers x
+# CAL_SMALL_STEPS each; the CLI's calibrate over phase 7's snapshot
+# (CAL_CLI_STEPS; 500 took 20.3 s with the process start).
+CAL_W, CAL_STEPS, CAL_BURN, CAL_NOISE = 128, 2000, 500, 0.05
+CAL_OTHER_STEPS, CAL_SMALL_W, CAL_SMALL_STEPS = 500, 64, 200
+CAL_CLI_STEPS = 200
+# The posterior mean of every parameter within CAL_Z_MAX posterior standard
+# deviations of the true theta.
+CAL_Z_MAX = 3.0
+# The float32 log-posterior against float64 (phase 7's snapshot's arrays at
+# both precisions, the float32 jitter floor on both, the same 2,688 walker
+# positions), the largest difference over the C3_T observables, in nats a
+# observable: measured 0.8328 nats in all, 0.0555 a observable, at |lp64|
+# from 0.40 to 26.1, in two runs on an NVIDIA H100 80GB HBM3, 700 W (the
+# float32 serve's mean sits ~1.6e-3 of its scale from float64 at the
+# fitted nuggets, phase 7). A mean error of delta
+# experimental sds on each observable moves the log-posterior of a walker
+# within the posterior by ~delta nats a observable: the gate holds the
+# float32 serve to ~0.1 sd.
+CAL_F32_NATS_PER_OBS = 0.1
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 rate and FP32 outside the
 # tensor cores (the kernels run full FP32 FFMA; TF32 is off).
 H100_BYTES_PER_S = 3.35e12
@@ -918,16 +1012,19 @@ def phase_kernels(dev, rng, k1_rng) -> list:
     ]
 
 
-def _prior_var(emu) -> float:
+def _prior_var(emu, kss=None) -> float:
     """Largest observable prior variance: the scale a predictive variance
-    cancels against."""
+    cancels against. kss, each component's prior variance, is amp + nugget
+    of the emulator's own parameters unless the caller passes it (a
+    multi-fidelity emulator's recursion)."""
     from madaiemulator_tpu_torch.models.multivariate import (
         reconstruct_observables,
     )
 
-    p = emu.params
-    kss = (torch.exp(p.log_amp) + torch.exp(p.log_nugget))[:, None]
-    _, v = reconstruct_observables(torch.zeros_like(kss), kss, emu.pca)
+    if kss is None:
+        kss = torch.exp(emu.params.log_amp) + torch.exp(emu.params.log_nugget)
+    _, v = reconstruct_observables(torch.zeros_like(kss[:, None]),
+                                   kss[:, None], emu.pca)
     return v.max().item()
 
 
@@ -1667,16 +1764,25 @@ def _config4_tiers(dev, data, data64, cfg, times: dict, check,
     return launches
 
 
-def _heavy_ion_like(rng, n, d, t):
-    """bench/bench_multivariate.py:24-38: a few latent response surfaces
-    mixed into t correlated observables."""
-    X = rng.uniform(size=(n, d))
-    k_lat = 4
-    latents = np.stack(
+def _latents(X, k_lat: int = 4):
+    """bench/bench_multivariate.py's latent response surfaces, (n, k_lat)."""
+    d = X.shape[1]
+    return np.stack(
         [np.sin(2.5 * X[:, i % d] + 0.7 * i) + (X[:, (i + 1) % d] - 0.4) ** 2
          for i in range(k_lat)], axis=1)
+
+
+def _heavy_ion_like(rng, n, d, t, with_simulator=False):
+    """bench/bench_multivariate.py:24-38: a few latent response surfaces
+    mixed into t correlated observables; with_simulator also returns the
+    noiseless simulator f(X) = latents(X) @ mix of this draw."""
+    X = rng.uniform(size=(n, d))
+    k_lat = 4
     mix = rng.standard_normal((k_lat, t)) * np.geomspace(1.0, 0.2, k_lat)[:, None]
-    return X, latents @ mix + 0.01 * rng.standard_normal((n, t))
+    Y = _latents(X, k_lat) @ mix + 0.01 * rng.standard_normal((n, t))
+    if with_simulator:
+        return X, Y, lambda A: _latents(A, k_lat) @ mix
+    return X, Y
 
 
 def _workdir(work):
@@ -2907,23 +3013,28 @@ def _truth1m(A):
 
 
 def _k1_path_checks(dev, pairs, smi, cell) -> tuple:
-    """K1 on a path's own operands: each (label, U (1, n1, d), V (1, n2, d),
-    amp (1,)) against the plain version, with kernel, plain and
+    """K1 on a path's own operands: each (label, U (B, n1, d), V (B, n2, d),
+    amp (B,)), or (label, U, U, amp, diag_add (B,)) for a Gram (the one
+    tensor as both operands, diag_add on the diagonal, as the path hands
+    them over), against the plain version, with kernel, plain and
     library-composite times and the bound. Returns (largest error,
     {label: reading})."""
     from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
 
     fam = "power_exponential"
     err_max, by_shape = 0.0, {}
-    for label, U, V, amp in pairs:
+    for label, U, V, amp, *rest in pairs:
+        g = rest[0] if rest else None
+        gram = g is not None
         B, n1, d = U.shape
         n2 = V.shape[1]
 
-        def kern(U=U, V=V, amp=amp):
-            return k1.pairwise_covariance(U, V, amp, None, fam)
+        def kern(U=U, V=V, amp=amp, g=g):
+            return k1.pairwise_covariance(U, V, amp, g, fam, add_diag=gram)
 
-        def plain(U=U, V=V, amp=amp):
-            return k1.pairwise_covariance_plain(U, V, amp, None, fam)
+        def plain(U=U, V=V, amp=amp, g=g):
+            return k1.pairwise_covariance_plain(U, V, amp, g, fam,
+                                                add_diag=gram)
 
         got = kern()
         err = (got - plain()).abs().max().item()
@@ -2936,11 +3047,12 @@ def _k1_path_checks(dev, pairs, smi, cell) -> tuple:
              "graph_ms": None if big else graph_ms(kern),
              "plain_ms": cuda_ms(plain, iters=3, warmup=1),
              "composite_ms": cuda_ms(
-                 lambda U=U, V=V, amp=amp: _k1_composite(U, V, amp, None,
-                                                         False),
+                 lambda U=U, V=V, amp=amp, g=g: _k1_composite(U, V, amp, g,
+                                                              gram),
                  iters=10)}
         t["bound_ms"], t["bound_by"] = bound_ms(
-            4 * (B * (n1 + n2) * d + B + B * n1 * n2),
+            4 * (B * (n1 + (0 if gram else n2)) * d + B * (2 if gram else 1)
+                 + B * n1 * n2),
             B * n1 * n2 * (3 * d + 3))
         t["max_abs_err"] = err
         by_shape[label] = t
@@ -2955,6 +3067,73 @@ def _k1_path_checks(dev, pairs, smi, cell) -> tuple:
               f"bound ({smi})")
         torch.cuda.empty_cache()
     return err_max, by_shape
+
+
+@contextlib.contextmanager
+def _path_operands():
+    """While the block runs, keep a copy of the operands of the last K1, K2
+    and K3 launch of each shape (the launches and their counts run as
+    before): {"pairwise_covariance": {(kind, B, n1, n2, d): (U, V, amp,
+    diag_add)}, "cholesky": {(B, n): A}, "panel_factor": {(B, b): P}}; a
+    Gram's V is its U."""
+    from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
+    from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
+    from madaiemulator_tpu_torch.ops.hopper import panel as k3
+
+    seen = {"pairwise_covariance": {}, "cholesky": {}, "panel_factor": {}}
+    orig = (k1.pairwise_covariance, k2.cholesky, k3.panel_factor)
+
+    def k1_record(U, V, amp, diag_add, family="power_exponential",
+                  add_diag=False):
+        require(family == "power_exponential",
+                f"K1 path check: family {family!r}")
+        gram = V.data_ptr() == U.data_ptr() and V.shape == U.shape
+        Uc = U.clone()
+        seen["pairwise_covariance"][
+            ("gram" if gram else "cross", *U.shape[:2], V.shape[1],
+             U.shape[2])] = (Uc, Uc if gram else V.clone(), amp.clone(),
+                             diag_add.clone() if add_diag else None)
+        return orig[0](U, V, amp, diag_add, family, add_diag)
+
+    def k2_record(A):
+        seen["cholesky"][tuple(A.shape[:2])] = A.clone()
+        return orig[1](A)
+
+    def k3_record(P):
+        seen["panel_factor"][tuple(P.shape[:2])] = P.clone()
+        return orig[2](P)
+
+    k1.pairwise_covariance, k2.cholesky, k3.panel_factor = (
+        k1_record, k2_record, k3_record)
+    try:
+        yield seen
+    finally:
+        k1.pairwise_covariance, k2.cholesky, k3.panel_factor = orig
+
+
+def _path_kernel_checks(dev, seen, smi, cell, prefix="") -> dict:
+    """Every kernel on the operands `_path_operands` kept: K1 against its
+    plain version (`_k1_path_checks`), K2 and K3 by their backward errors
+    (the operands sit at fitted thetas, where the forward distance of two
+    float32 factors measures the conditioning). Returns {kernel name:
+    {label: reading}}."""
+    out = {}
+    pairs = [(f"{prefix}{kind}({B},{n1},{n2})d{d}", U, V, amp,
+              *(() if g is None else (g,)))
+             for (kind, B, n1, n2, d), (U, V, amp, g)
+             in sorted(seen["pairwise_covariance"].items())]
+    if pairs:
+        out["pairwise_covariance"] = _k1_path_checks(dev, pairs, smi,
+                                                     cell)[1]
+    for (B, n), A in sorted(seen["cholesky"].items()):
+        out.setdefault("cholesky", {}).update(_k2_path_check(
+            dev, A, smi, cell, f"{prefix}the path's last ({B},{n},{n}) "
+            "Grams"))
+    for (B, b), P in sorted(seen["panel_factor"].items()):
+        out.setdefault("panel_factor", {}).update(_k3_path_check(
+            dev, P, smi, cell, f"{prefix}the path's last ({B},{b},{b}) "
+            "diagonal panels", fitted=True))
+    return out
 
 
 def _identity_pca_emulator(mv, scaling_d, dev, dtype, **fields):
@@ -3220,24 +3399,37 @@ def phase_sparse(dev, seed: int, smi: str, work) -> tuple:
     return launches, (k1_err, k1_shapes)
 
 
-def _k2_k3_path_checks(dev, C_batch, panel, smi) -> dict:
-    """K2 on a path's own Grams (B, n, n) and K3 on a path's own diagonal
-    panel (1, b, b): against their plain versions (relative to max|L|) and
-    float64, timed beside the library calls, with their bounds."""
-    from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
-    from madaiemulator_tpu_torch.ops.hopper import panel as k3
+def _factored_members(A, L, Lp, cell, name) -> tuple:
+    """A batch member that is not SPD in float32 comes back NaN from the
+    kernel (the JAX package's rule): the kernel and its plain version must
+    fail on the same members, and are compared on the others. Returns (L,
+    Lp, A of the factored members, the count that failed)."""
+    ok = torch.isfinite(L).flatten(1).all(1)
+    ok_plain = torch.isfinite(Lp).flatten(1).all(1)
+    require(torch.equal(ok, ok_plain) and bool(ok.any()),
+            f"{cell} {name}: the kernel factors members "
+            f"{ok.nonzero().flatten().tolist()}, the plain version "
+            f"{ok_plain.nonzero().flatten().tolist()}")
+    return L[ok], Lp[ok], A[ok], int((~ok).sum())
 
-    out = {}
+
+def _k2_path_check(dev, C_batch, smi, cell, what) -> dict:
+    """K2 on a path's own Grams (B, n, n): against its plain version
+    (relative to max|L|) and float64, timed beside the library call, with
+    its bound."""
+    from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
+
     B, n, _ = C_batch.shape
-    L = k2.cholesky(C_batch)
-    Lp = k2.cholesky_plain(C_batch)
-    L64 = torch.linalg.cholesky(C_batch.double())
+    L, Lp, C, failed = _factored_members(C_batch, k2.cholesky(C_batch),
+                                         k2.cholesky_plain(C_batch), cell,
+                                         "K2")
+    L64 = torch.linalg.cholesky_ex(C.double())[0]
     scale = L64.abs().max().item()
     e_plain = (L - Lp).abs().max().item() / scale
     e64 = (L.double() - L64).abs().max().item() / scale
     Ld = L.double()
-    resid = ((Ld @ Ld.mT - C_batch.double()).abs().max().item()
-             / C_batch.abs().max().item())
+    resid = ((Ld @ Ld.mT - C.double()).abs().max().item()
+             / C.abs().max().item())
     t = {"ms": cuda_ms(lambda: k2.cholesky(C_batch)),
          "plain_ms": cuda_ms(lambda: k2.cholesky_plain(C_batch), iters=2,
                              warmup=1),
@@ -3246,27 +3438,46 @@ def _k2_k3_path_checks(dev, C_batch, panel, smi) -> dict:
                                             B * n ** 3 / 3)
     t["max_abs_err"] = (L - Lp).abs().max().item()
     t["rel_err_plain"], t["rel_err_f64"] = e_plain, e64
-    t["backward_err"] = resid
+    t["backward_err"], t["failed_members"] = resid, failed
     # the states' Grams sit at the fitted nuggets (cond up to ~1.6e7), where
     # any two float32 factors differ by ~1e-4 x max|L|: the backward error
     # is gated (phase 8's rule), the forward distances printed
     require(resid <= C5_K2_RESIDUAL,
-            f"diagnostics K2 ({B},{n},{n}) backward error {resid:.3g} > "
+            f"{cell} K2 ({B},{n},{n}) backward error {resid:.3g} > "
             f"{C5_K2_RESIDUAL}")
-    out[f"cholesky({B},{n},{n})"] = t
-    print(f"diagnostics K2 ({B},{n},{n}) on config 3's state Grams: "
-          f"backward error {resid:.3g} <= {C5_K2_RESIDUAL}; forward vs plain "
-          f"{e_plain:.3g}, vs float64 {e64:.3g} x max|L| (not gated);"
-          f" kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.2f} ms, "
-          f"cholesky_ex {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4g} "
-          f"ms ({t['bound_by']}) ({smi})")
-    b = panel.shape[-1]
+    print(f"{cell} K2 ({B},{n},{n}) on {what} ({failed} members not SPD "
+          f"in float32, by both versions): backward error {resid:.3g} "
+          f"<= {C5_K2_RESIDUAL}; forward vs plain {e_plain:.3g}, vs float64 "
+          f"{e64:.3g} x max|L| (not gated); kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.2f} ms, cholesky_ex {t['library_ms']:.4f} ms, "
+          f"bound {t['bound_ms']:.4g} ms ({t['bound_by']}) ({smi})")
+    return {f"cholesky({B},{n},{n})": t}
+
+
+def _k3_path_check(dev, panel, smi, cell, what, fitted=False) -> dict:
+    """K3 on a path's own diagonal panels (B, b, b): against its plain
+    version (relative to max|L|) and float64, timed beside the library
+    pair, with its bound. At a check theta the forward distances are gated;
+    at `fitted` thetas (the nuggets' conditioning) the factor's backward
+    error is, and the inverse's residual is held to the plain version's
+    own on the same panels."""
+    from madaiemulator_tpu_torch.ops.hopper import panel as k3
+
+    B, b, _ = panel.shape
     (Lk, Li), (Lq, Lqi) = k3.panel_factor(panel), k3.panel_factor_plain(panel)
-    P64 = torch.linalg.cholesky(panel.double())
+    ok = torch.isfinite(Lk).flatten(1).all(1)
+    Lk, Lq, P, failed = _factored_members(panel, Lk, Lq, cell, "K3")
+    Li, Lqi = Li[ok], Lqi[ok]
+    P64 = torch.linalg.cholesky_ex(P.double())[0]
     scale = P64.abs().max().item()
     e_plain = (Lk - Lq).abs().max().item() / scale
     e64 = (Lk.double() - P64).abs().max().item() / scale
-    inv = (Li @ Lk - torch.eye(b, device=dev)).abs().max().item()
+    eye = torch.eye(b, device=dev)
+    inv = (Li @ Lk - eye).abs().max().item()
+    inv_plain = (Lqi @ Lq - eye).abs().max().item()
+    Ld = Lk.double()
+    resid = ((Ld @ Ld.mT - P.double()).abs().max().item()
+             / P.abs().max().item())
 
     def pair():
         Lc, _ = torch.linalg.cholesky_ex(panel)
@@ -3277,20 +3488,33 @@ def _k2_k3_path_checks(dev, C_batch, panel, smi) -> dict:
          "plain_ms": cuda_ms(lambda: k3.panel_factor_plain(panel), iters=2,
                              warmup=1),
          "library_ms": cuda_ms(pair)}
-    t["bound_ms"], t["bound_by"] = bound_ms(3 * 4 * b * b, 2 * b ** 3 / 3)
+    t["bound_ms"], t["bound_by"] = bound_ms(3 * 4 * B * b * b,
+                                            2 * B * b ** 3 / 3)
     t["max_abs_err"] = (Lk - Lq).abs().max().item()
     t["rel_err_plain"], t["rel_err_f64"], t["inv_err"] = e_plain, e64, inv
-    require(e_plain <= K2_RTOL and e64 <= K2_RTOL and inv <= K3_INV_TOL,
-            f"diagnostics K3 (1,{b},{b}) vs plain {e_plain:.3g}, vs float64 "
-            f"{e64:.3g}, |Linv L - I| {inv:.3g}")
-    out[f"panel_factor(1,{b},{b})"] = t
-    print(f"diagnostics K3 (1,{b},{b}) on config 4's first diagonal panel: "
-          f"vs plain {e_plain:.3g}, vs float64 {e64:.3g} x max|L| <= "
-          f"{K2_RTOL}, |Linv L - I| {inv:.3g} <= {K3_INV_TOL}; kernel "
+    t["failed_members"] = failed
+    if fitted:
+        inv_gate = max(K3_INV_TOL, 2.0 * inv_plain)
+        t["backward_err"], t["inv_err_plain"] = resid, inv_plain
+        require(resid <= C5_K2_RESIDUAL and inv <= inv_gate,
+                f"{cell} K3 ({B},{b},{b}) backward error {resid:.3g}, "
+                f"|Linv L - I| {inv:.3g} (plain {inv_plain:.3g})")
+        gates = (f"backward error {resid:.3g} <= {C5_K2_RESIDUAL}, |Linv L "
+                 f"- I| {inv:.3g} <= max({K3_INV_TOL}, 2 x the plain "
+                 f"version's {inv_plain:.3g}); forward vs plain "
+                 f"{e_plain:.3g}, vs float64 {e64:.3g} x max|L| (not gated)")
+    else:
+        require(e_plain <= K2_RTOL and e64 <= K2_RTOL and inv <= K3_INV_TOL,
+                f"{cell} K3 ({B},{b},{b}) vs plain {e_plain:.3g}, vs float64 "
+                f"{e64:.3g}, |Linv L - I| {inv:.3g}")
+        gates = (f"vs plain {e_plain:.3g}, vs float64 {e64:.3g} x max|L| <= "
+                 f"{K2_RTOL}, |Linv L - I| {inv:.3g} <= {K3_INV_TOL}")
+    print(f"{cell} K3 ({B},{b},{b}) on {what} ({failed} members not SPD "
+          f"in float32, by both versions): {gates}; kernel "
           f"{t['ms']:.4f} ms, plain {t['plain_ms']:.2f} ms, library pair "
           f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4g} ms "
           f"({t['bound_by']}) ({smi})")
-    return out
+    return {f"panel_factor({B},{b},{b})": t}
 
 
 def _loo_gap(res32, res64, y_scale) -> tuple:
@@ -3485,7 +3709,11 @@ def phase_diagnostics(dev, seed: int, smi: str, work, iter_params) -> tuple:
     # K2 on config 3's state Grams, K3 on config 4's first panel
     C3 = kernels.gram_matrix(emu.X, emu.params, cfg).contiguous()
     C4 = kernels.gram_matrix(data.X, theta, c4cfg)
-    k23 = _k2_k3_path_checks(dev, C3, C4[:512, :512][None].contiguous(), smi)
+    k23 = _k2_path_check(dev, C3, smi, "diagnostics",
+                         "config 3's state Grams")
+    k23.update(_k3_path_check(dev, C4[:512, :512][None].contiguous(), smi,
+                              "diagnostics", "config 4's first diagonal "
+                              "panel"))
     del C3, C4, data
     torch.cuda.empty_cache()
 
@@ -3574,6 +3802,614 @@ def phase_diagnostics(dev, seed: int, smi: str, work, iter_params) -> tuple:
     return paths, k23
 
 
+def _forrester(x):
+    return (6.0 * x - 2.0) ** 2 * np.sin(12.0 * x - 4.0)
+
+
+def _forrester_check(dev, seed: int, smi: str, check) -> None:
+    """The Forrester acceptance case at float64 on the card: 4 expensive and
+    21 cheap points (nested), against a single-fidelity GP on the 4."""
+    from madaiemulator_tpu_torch.models import fit, gp
+    from madaiemulator_tpu_torch.models.multifidelity import (
+        fit_multifidelity,
+        predict_multifidelity,
+    )
+    from madaiemulator_tpu_torch.utils.config import GPConfig
+    from madaiemulator_tpu_torch.utils.designs import apply_scaling
+
+    def low(x):
+        return 0.5 * _forrester(x) + 10.0 * (x - 0.5) - 5.0
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float64, device=dev)
+
+    x_lo, x_hi = np.linspace(0.0, 1.0, 21), np.array([0.0, 0.4, 0.6, 1.0])
+    cfg = GPConfig(nparams=1, regression_order=1, n_restarts=4,
+                   max_opt_steps=40)
+    t0 = time.perf_counter()
+    emu = fit_multifidelity(
+        torch.Generator().manual_seed(seed), [t(x_lo[:, None]),
+                                              t(x_hi[:, None])],
+        [t(low(x_lo)), t(_forrester(x_hi))], cfg,
+        lower_values=[t(low(x_hi))])
+    xq = np.linspace(0.0, 1.0, 101)
+    m_mf, v_mf = predict_multifidelity(emu, xq[:, None])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    truth = _forrester(xq)
+    rmse_mf = float(np.sqrt(np.mean((m_mf.cpu().numpy() - truth) ** 2)))
+    dh = gp.GPData(X=apply_scaling(t(x_hi[:, None]), emu.scaling),
+                   y=t(_forrester(x_hi)))
+    res = fit.fit_gp(torch.Generator().manual_seed(seed), dh, cfg)
+    m_sf, _ = gp.gp_posterior(res.params, dh,
+                              apply_scaling(t(xq[:, None]), emu.scaling), cfg)
+    rmse_sf = float(np.sqrt(np.mean((m_sf.cpu().numpy() - truth) ** 2)))
+    check(rmse_sf >= MF_GAIN_MIN * rmse_mf and bool((v_mf >= 0).all()),
+          f"Forrester (float64, 21 cheap + 4 expensive, {wall:.2f} s): "
+          f"multi-fidelity rmse {rmse_mf:.4g} vs single-fidelity "
+          f"{rmse_sf:.4g}, {rmse_sf / rmse_mf:.1f}x >= {MF_GAIN_MIN}x; rho "
+          f"{emu.rho.tolist()} (the generative link is 2) ({smi})")
+
+
+def _text_gap_cause(emu, txt, mdir, Xt, mean, var, scale, pv, check,
+                    smi) -> None:
+    """Why the text snapshot read back at float32 serves apart from the
+    emulator while the .npz serves equal. The text grammar stores
+    natural-space thetas, exp of the float32 log-parameters (its bytes are
+    the JAX writer's), so a log-parameter may read back an ulp off; every
+    other array reads back exact. Printed: that distance in float32 ulps;
+    the text read-back with the emulator's own log-parameters put back (its
+    serve states rebuilt), gated to serve as the emulator does; and the
+    text against the .npz both read at float64, where the state rebuild
+    rounds at ~1e-16: how far the model itself moves for that ulp."""
+    from madaiemulator_tpu_torch.io.snapshot import read_snapshot_auto
+    from madaiemulator_tpu_torch.models.multifidelity import (
+        predict_multivariate_multifidelity,
+    )
+    from madaiemulator_tpu_torch.models.multivariate import _vmapped_states
+
+    ulps = 0.0
+    for lt, le in zip(txt.levels, emu.levels):
+        for a, b in zip(lt.params, le.params):
+            ulp = torch.nextafter(b, torch.full_like(b, float("inf"))) - b
+            ulps = max(ulps, ((a - b).abs() / ulp).max().item())
+    own = txt._replace(levels=tuple(
+        lt._replace(params=le.params, states=_vmapped_states(
+            le.params, lt.X, lt.Z, txt.config, noise_pc=lt.noise,
+            H_pc=lt.H))
+        for lt, le in zip(txt.levels, emu.levels)))
+    mo, vo = predict_multivariate_multifidelity(own, Xt)
+    dm = (mo - mean).abs().max().item() / scale
+    dv = (vo - var).abs().max().item() / pv
+    dev = mean.device
+    t64, _, _ = read_snapshot_auto(str(mdir / "mf.txt"), device=dev,
+                                   dtype=torch.float64)
+    n64, _, _ = read_snapshot_auto(str(mdir / "mf.npz"), device=dev,
+                                   dtype=torch.float64)
+    (mt, vt), (mn, vn) = (predict_multivariate_multifidelity(e, Xt)
+                          for e in (t64, n64))
+    dm64 = (mt - mn).abs().max().item() / scale
+    dv64 = (vt - vn).abs().max().item() / pv
+    check(dm <= SERVER_TOL and dv <= SERVER_TOL,
+          f"the text snapshot's gap is its log-parameters': they read back "
+          f"within {ulps:.0f} float32 ulp of the emulator's; put back, the "
+          f"text read-back serves mean {dm:.3g} x scale, variance {dv:.3g} "
+          f"x prior var from the emulator (<= {SERVER_TOL}); at float64 "
+          f"the text and the .npz serve {dm64:.3g} x scale and {dv64:.3g} "
+          f"x prior var apart (not gated) ({smi})")
+
+
+def phase_multifidelity(dev, seed: int, smi: str, work, native) -> tuple:
+    """Multi-fidelity AR(1) co-kriging (models/multifidelity.py) on the
+    card: the Forrester acceptance case at float64; then config 3's width
+    with a cheap level (MF_N0 runs of a biased copy of phase 7's simulator,
+    non-nested) and phase 7's 512 expensive runs at float32, fitted and
+    served with the launch counts set to 0 just before and read just after
+    (K3 on every diagonal panel of the cheap level's factorizations, K2 on
+    the expensive level's); the served rmse on MF_M held-out expensive runs
+    against phase 7's single-fidelity snapshot; the text and .npz snapshots
+    read back and served, the text one also by native/'s madai_query; the
+    per-level LOO; the CLI (estimate_thetas on a MULTIFIDELITY model file,
+    interactive_mode, validate). Returns (launches, the emulator)."""
+    from madaiemulator_tpu_torch.io.modelfile import (
+        write_multifidelity_model_file,
+    )
+    from madaiemulator_tpu_torch.io.snapshot import (
+        read_snapshot,
+        read_snapshot_auto,
+        write_snapshot_auto,
+    )
+    from madaiemulator_tpu_torch.models.diagnostics import (
+        loo_cv_multifidelity_mv,
+        reconstruct_level_targets_mv,
+    )
+    from madaiemulator_tpu_torch.models.multifidelity import (
+        fit_multivariate_multifidelity,
+        predict_multivariate_multifidelity,
+    )
+    from madaiemulator_tpu_torch.models.multivariate import (
+        predict_multivariate,
+    )
+    from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
+    from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
+    from madaiemulator_tpu_torch.ops.hopper import panel as k3
+    from madaiemulator_tpu_torch.utils.config import GPConfig
+
+    t_phase = time.perf_counter()
+    failed = []
+
+    def check(ok: bool, what: str) -> None:
+        print(f"multifidelity check {'ok' if ok else 'FAILED'}: {what}")
+        if not ok:
+            failed.append(what)
+
+    _forrester_check(dev, seed, smi, check)
+
+    # config 3's width: phase 7's data is the expensive level
+    X, Y, f = _heavy_ion_like(np.random.default_rng(seed), C3_N, C3_D, C3_T,
+                              with_simulator=True)
+    mrng = np.random.default_rng([seed, 13])
+    X0 = mrng.uniform(size=(MF_N0, C3_D))
+    Y0 = (0.8 * f(X0) + 0.3 * np.sin(3.0 * X0[:, :1]) + 0.1 * X0[:, 1:2]
+          + 0.01 * mrng.standard_normal((MF_N0, C3_T)))
+    Xt = mrng.uniform(size=(MF_M, C3_D))
+    Yt = f(Xt)
+    cfg = GPConfig(nparams=C3_D, regression_order=1, n_restarts=C3_R,
+                   max_opt_steps=C3_STEPS)
+
+    def T(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    # the main path, the counts set to 0 just before and read just after:
+    # the fit of both levels, then serving the held-out runs; the last
+    # operands of each kernel and shape kept for the checks below
+    k1.launches = k2.launches = k3.launches = 0
+    torch.cuda.synchronize()
+    with _path_operands() as seen:
+        t0 = time.perf_counter()
+        emu = fit_multivariate_multifidelity(
+            torch.Generator().manual_seed(seed), [T(X0), T(X)],
+            [T(Y0), T(Y)], cfg, pca_variance=C3_PCA)
+        torch.cuda.synchronize()
+        fit_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mean, var = predict_multivariate_multifidelity(emu, Xt)
+        torch.cuda.synchronize()
+        serve_wall = time.perf_counter() - t0
+    launches = {"pairwise_covariance": k1.launches, "cholesky": k2.launches,
+                "panel_factor": k3.launches}
+    st0, st1 = emu.fit_stats
+    e0 = st0["n_vg_calls"] + st0["n_v_calls"]
+    e1 = st1["n_vg_calls"] + st1["n_v_calls"]
+    panels = -(-MF_N0 // cfg.cholesky_block)
+    r = emu.n_components
+    print(f"multifidelity: levels N={MF_N0} (cheap, K3 route) and N={C3_N} "
+          f"(expensive, K2), d={C3_D}, t={C3_T} -> r={r} (pooled PCA "
+          f"{C3_PCA}), {C3_R} restarts x {C3_STEPS} steps a level, float32: "
+          f"fit {fit_wall:.3f} s (level 0 {st0['fit_wall_s']:.3f} s, "
+          f"{e0} objective evaluations, {e0 / st0['n_steps']:.2f} a step; "
+          f"level 1 {st1['fit_wall_s']:.3f} s, {e1} evaluations, "
+          f"{e1 / st1['n_steps']:.2f} a step); serve {MF_M} queries "
+          f"{serve_wall * 1e3:.2f} ms; rho per component "
+          f"{[round(v, 4) for v in emu.rho[0].tolist()]} ({smi})")
+    # level 0: a Gram (K1) and a factorization (one K3 per diagonal panel)
+    # an objective evaluation, and one of each for its serve states; the
+    # expensive level's column is level 0's mean at its design (one K1);
+    # level 1: K1 + K2 an evaluation and for its states; serving: one K1
+    # cross covariance a level
+    want = {"pairwise_covariance": (e0 + 1) + 1 + (e1 + 1) + 2,
+            "cholesky": e1 + 1, "panel_factor": panels * (e0 + 1)}
+    check(launches == want,
+          f"multi-fidelity path launches {launches} = {want} (level 0: "
+          f"{e0} evaluations + 1 state build, {panels} panels each; level "
+          f"1: {e1} + 1; one K1 for the lower-level column, two for "
+          f"serving)")
+    lls = [ll.amax(dim=1) for ll in emu.restart_log_likelihoods]
+    rmse_mf = float(np.sqrt(np.mean((mean.double().cpu().numpy() - Yt)
+                                    ** 2)))
+    sf, _, _ = read_snapshot(str(pathlib.Path(work) / "config3" /
+                                 "state.txt"), device=dev,
+                             dtype=torch.float32)
+    m_sf, _ = predict_multivariate(sf, Xt)
+    rmse_sf = float(np.sqrt(np.mean((m_sf.double().cpu().numpy() - Yt)
+                                    ** 2)))
+    check(all(bool(torch.isfinite(x).all()) for x in lls)
+          and bool(torch.isfinite(mean).all() & torch.isfinite(var).all()
+                   & (var >= 0).all()) and bool(torch.isfinite(emu.rho).all()),
+          f"every level's best logL finite ({[x.tolist() for x in lls]}); "
+          f"served rmse on {MF_M} held-out expensive runs {rmse_mf:.4g} vs "
+          f"phase 7's single-fidelity fit on the same 512 runs "
+          f"{rmse_sf:.4g} ({rmse_sf / rmse_mf:.2f}x) ({smi})")
+
+    # every kernel on the operands the path handed it: K1 on both levels'
+    # Grams (the fit's lanes and the states) and crosses (the lower level's
+    # column, the serve), K2 on the expensive level's Grams, K3 on the cheap
+    # level's diagonal panels
+    checks = _path_kernel_checks(dev, seen, smi, "multifidelity")
+    del seen
+    torch.cuda.empty_cache()
+
+    mdir = pathlib.Path(work) / "mf"
+    mdir.mkdir(parents=True, exist_ok=True)
+    scale = float(np.abs(Yt).max())
+    # the top level's prior variance: the recursion's rho_k^2 var_{k-1} +
+    # amp_k + nugget_k per component
+    kss = None
+    for lv in emu.levels:
+        own = torch.exp(lv.params.log_amp) + torch.exp(lv.params.log_nugget)
+        kss = own if kss is None else lv.rho ** 2 * kss + own
+    pv = _prior_var(emu, kss)
+    served = {}
+    for name, tol in (("mf.npz", SERVER_TOL), ("mf.txt", MF_TEXT_SERVE_TOL)):
+        path = str(mdir / name)
+        write_snapshot_auto(path, emu)
+        back, _, _ = read_snapshot_auto(path, device=dev, dtype=torch.float32)
+        served[name] = back
+        mb, vb = predict_multivariate_multifidelity(back, Xt)
+        dm = (mb - mean).abs().max().item() / scale
+        dv = (vb - var).abs().max().item() / pv
+        check(dm <= tol and dv <= tol,
+              f"snapshot {name} ({os.path.getsize(path)} bytes) read back "
+              f"and served: mean {dm:.3g} x scale, variance {dv:.3g} x "
+              f"prior var <= {tol}")
+    _text_gap_cause(emu, served["mf.txt"], mdir, Xt, mean, var, scale, pv,
+                    check, smi)
+    del served
+    # native/'s madai_query on the port-written text snapshot, against the
+    # port's float64 serve of the same file
+    text = str(mdir / "mf.txt")
+    qn = Xt[:64]
+    e64, _, _ = read_snapshot_auto(text, device=dev, dtype=torch.float64)
+    want = torch.cat(predict_multivariate_multifidelity(e64, qn),
+                     dim=1).cpu().numpy()
+    rc_build, build_err = native.result()
+    if rc_build != 0:
+        check(False, f"native/ build exit {rc_build}: {build_err[-400:]}")
+    else:
+        proc = subprocess.run(
+            [str(pathlib.Path(work) / "native" / "madai_query"), text],
+            input="".join(" ".join(f"{v:.17g}" for v in p) + "\n"
+                          for p in qn),
+            capture_output=True, text=True, timeout=120)
+        lines = proc.stdout.splitlines()
+        head = 1 + C3_D + 1 + 2 * C3_T
+        got = (np.asarray(lines[head:], float).reshape(len(qn), 2 * C3_T)
+               if proc.returncode == 0 else np.full_like(want, np.nan))
+        dm = np.abs(got[:, :C3_T] - want[:, :C3_T]).max() / scale
+        dv = np.abs(got[:, C3_T:] - want[:, C3_T:]).max() / np.abs(
+            want[:, C3_T:]).max()
+        check(proc.returncode == 0 and dm <= MF_NATIVE_TOL
+              and dv <= MF_NATIVE_TOL,
+              f"madai_query (native/, built in {native.seconds:.1f} s) on "
+              f"the port-written version-2 snapshot, {len(qn)} queries, vs "
+              f"the port's float64 serve: exit {proc.returncode}, mean "
+              f"{dm:.3g} x scale, variance {dv:.3g} x max var <= "
+              f"{MF_NATIVE_TOL}; stderr {proc.stderr.strip()[-200:]!r}")
+    t0 = time.perf_counter()
+    loo = loo_cv_multifidelity_mv(emu)
+    torch.cuda.synchronize()
+    loo_wall = time.perf_counter() - t0
+    parts = []
+    for k, (res, lm, lv) in enumerate(loo):
+        yk = reconstruct_level_targets_mv(emu, k)
+        parts.append(
+            f"level {k}: ok {bool(res.ok.all())}, rmse "
+            f"{(lm - yk).pow(2).mean().sqrt().item():.4g}, finite "
+            f"{bool(torch.isfinite(lm).all() & torch.isfinite(lv).all())}")
+    check(all("ok True" in p and "finite True" in p for p in parts),
+          f"per-level LOO ({loo_wall:.3f} s): " + "; ".join(parts))
+
+    # the CLI: a MULTIFIDELITY model file -> estimate_thetas ->
+    # interactive_mode over the pipe -> validate
+    model, state = str(mdir / "model.txt"), str(mdir / "cli_state.txt")
+    write_multifidelity_model_file(model, [X0, X], [Y0, Y])
+    t0 = time.perf_counter()
+    rc, _, err = _run_cli(
+        ["estimate_thetas", model, state, "--dtype", "float32", "--device",
+         "cuda", "--regression_order", "1", "--pca_variance", str(C3_PCA),
+         "--restarts", str(MF_CLI_R), "--steps", str(MF_CLI_STEPS),
+         "--seed", str(seed)])
+    ok = rc == 0 and pathlib.Path(state).exists()
+    check(ok, f"CLI estimate_thetas on a MULTIFIDELITY model file "
+          f"(--dtype float32, {MF_CLI_R} x {MF_CLI_STEPS}) exit {rc} in "
+          f"{time.perf_counter() - t0:.2f} s (process start included); "
+          f"stderr: {err.strip()[-300:]!r}")
+    if ok:
+        cemu, pn, on = read_snapshot_auto(state, device=dev,
+                                          dtype=torch.float32)
+        batches = [Xt[:1], Xt[1:64], Xt[64:256]]
+        header = ([f"{C3_D}\n"] + [f"{x}\n" for x in pn]
+                  + [f"{2 * C3_T}\n"] + [f"mean_{x}\n" for x in on]
+                  + [f"variance_{x}\n" for x in on])
+        served = _serve_over_pipe(state, batches, C3_D, C3_T, header)
+        want = np.concatenate(
+            [torch.cat(predict_multivariate_multifidelity(cemu, b),
+                       dim=1).cpu().double().numpy() for b in batches])
+        sm = np.abs(served[:, :C3_T] - want[:, :C3_T]).max() / scale
+        sv = np.abs(served[:, C3_T:] - want[:, C3_T:]).max() / np.abs(
+            want[:, C3_T:]).max()
+        check(sm <= SERVER_TOL and sv <= SERVER_TOL,
+              f"interactive_mode on the CLI's multi-fidelity snapshot vs "
+              f"in-process: mean {sm:.3g} x scale, var {sv:.3g} x max var "
+              f"<= {SERVER_TOL}")
+        rc, out, err = _run_cli(["validate", state, "--dtype", "float32",
+                                 "--device", "cuda"])
+        lines = [ln for ln in out.splitlines() if ln.startswith("level1_")]
+        check(rc == 0 and len(lines) == 8,
+              f"CLI validate on the multi-fidelity snapshot exit {rc}: "
+              f"{lines[:2]}; stderr {err.strip()[-200:]!r}")
+    print(f"multifidelity phase wall {time.perf_counter() - t_phase:.1f} s")
+    require(not failed,
+            f"multifidelity: {len(failed)} checks failed: {failed}")
+    return launches, emu, checks
+
+
+def _posterior_z(chain, burn, scaling, theta_true) -> tuple:
+    """(natural-space kept draws, their mean, std, |mean - truth| / std)."""
+    kept = chain[burn:].double().cpu().numpy()
+    nat = (kept * scaling.ranges.double().cpu().numpy()
+           + scaling.mins.double().cpu().numpy())
+    flat = nat.reshape(-1, nat.shape[-1])
+    mu, sd = flat.mean(0), flat.std(0)
+    return nat, mu, sd, np.abs(mu - theta_true) / np.maximum(sd, 1e-300)
+
+
+def phase_calibrate(dev, seed: int, smi: str, work, iter_params,
+                    mf_emu) -> dict:
+    """In-process MCMC calibration (models/calibrate.py) on the card:
+    bench/bench_calibrate.py's run (emcee, CAL_W walkers x CAL_STEPS steps)
+    over phase 7's config-3 snapshot at float32, with the launch counts set
+    to 0 just before the chain and read just after (K1: one cross
+    covariance a half-move, two a step, plus the start); steps/s, emulator
+    evaluations/s, the busy share, acceptance, R-hat, ESS and the posterior
+    mean against the true theta; pt, rwm and hmc; the multi-fidelity
+    emulator of phase 13, phase 11's sparse snapshot and phase 10's
+    matrix-free emulator on its serving cache; the float32 log-posterior
+    against float64 over the walkers; the CLI's calibrate."""
+    from madaiemulator_tpu_torch.io.experiment import write_experiment_file
+    from madaiemulator_tpu_torch.io.snapshot import (
+        read_snapshot,
+        read_snapshot_auto,
+    )
+    from madaiemulator_tpu_torch.models import calibrate as cal
+    from madaiemulator_tpu_torch.models.multivariate import (
+        IterativeMultivariateEmulator,
+        emulator_from_numpy,
+        precompute_iterative_multivariate,
+    )
+    from madaiemulator_tpu_torch.ops import kernels
+    from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
+    from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
+    from madaiemulator_tpu_torch.ops.hopper import panel as k3
+    from madaiemulator_tpu_torch.utils.config import GPConfig
+
+    t_phase = time.perf_counter()
+    failed = []
+
+    def check(ok: bool, what: str) -> None:
+        print(f"calibrate check {'ok' if ok else 'FAILED'}: {what}")
+        if not ok:
+            failed.append(what)
+
+    state = str(pathlib.Path(work) / "config3" / "state.txt")
+    emu, _, _ = read_snapshot(state, device=dev, dtype=torch.float32)
+    X, _, f = _heavy_ion_like(np.random.default_rng(seed), C3_N, C3_D, C3_T,
+                              with_simulator=True)
+    crng = np.random.default_rng([seed, 14])
+    theta_true = X[7]
+    y_exp = f(theta_true[None])[0] + CAL_NOISE * crng.standard_normal(C3_T)
+    exp_var = np.full(C3_T, CAL_NOISE ** 2)
+    lp = cal.make_log_posterior(emu, y_exp, exp_var)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x0 = cal.init_walkers(gen, emu, lp, CAL_W)
+
+    # the main path: the chain, the counts set to 0 just before and read
+    # just after
+    k1.launches = k2.launches = k3.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chain, lps, acc = cal.run_emcee(gen, lp, x0, CAL_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"pairwise_covariance": k1.launches, "cholesky": k2.launches,
+                "panel_factor": k3.launches}
+    want = {"pairwise_covariance": 2 * CAL_STEPS + 1, "cholesky": 0,
+            "panel_factor": 0}
+    check(launches == want,
+          f"emcee path launches {launches} = {want} (one K1 cross "
+          f"covariance over the {emu.n_components} components a half-move, "
+          f"plus the start)")
+    nat, mu, sd, z = _posterior_z(chain, CAL_BURN, emu.scaling, theta_true)
+    rhat, ess = cal.gelman_rubin(nat), cal.effective_sample_size(nat)
+    acc = float(acc)
+    print(f"calibrate emcee: {CAL_W} walkers x {CAL_STEPS} steps on config "
+          f"3 (N={C3_N}, t={C3_T}, r={emu.n_components}, float32) in "
+          f"{wall:.3f} s: {CAL_STEPS / wall:.1f} steps/s, "
+          f"{CAL_STEPS * CAL_W / wall:.0f} emulator evaluations/s; "
+          f"acceptance {acc:.3f}; R-hat {np.round(rhat, 4).tolist()}; ESS "
+          f"{np.round(ess, 1).tolist()} ({smi})")
+    check(0.0 < acc < 1.0 and bool(torch.isfinite(lps[-1]).all())
+          and bool((z <= CAL_Z_MAX).all()),
+          f"acceptance in (0, 1), every walker finite; posterior mean "
+          f"{np.round(mu, 4).tolist()} (sd {np.round(sd, 4).tolist()}) "
+          f"against the true theta {np.round(theta_true, 4).tolist()}: "
+          f"{np.round(z, 2).tolist()} posterior sd <= {CAL_Z_MAX}")
+    xl = chain[-1]
+    step_ms = host_ms(lambda: cal.run_emcee(gen, lp, xl, 10), iters=3) / 10
+    profile_once("10 emcee steps", lambda: cal.run_emcee(gen, lp, xl, 10),
+                 10 * step_ms, smi, cell="calibrate")
+    print(f"calibrate time a step (2 half-moves, {CAL_W} walkers): "
+          f"{step_ms:.3f} ms wall; the chain's {wall * 1e3 / CAL_STEPS:.3f} "
+          f"ms ({smi})")
+    # every kernel on the operands of one half-move's evaluation (K1's
+    # cross covariance of the walkers over the components), here and for
+    # each emulator kind below
+    checks = {}
+
+    def half_move_checks(kind, lpx, walkers):
+        with _path_operands() as seen:
+            lpx(walkers)
+        for name, readings in _path_kernel_checks(
+                dev, seen, smi, "calibrate", f"{kind} ").items():
+            checks.setdefault(name, {}).update(readings)
+
+    half_move_checks("dense", lp, xl[:CAL_W // 2])
+
+    # float32 against float64: the same snapshot's arrays at both
+    # precisions (the float32 jitter floor set on both, as phase 7 does),
+    # the log-posterior at the same walker positions (the chain's start and
+    # its last 20 steps)
+    jit32 = kernels.effective_jitter_frac(C3_N, torch.float32, emu.config)
+    arrays = dict(
+        mins=emu.scaling.mins, ranges=emu.scaling.ranges, X=emu.X, Z=emu.Z,
+        ymean=emu.pca.ymean, ystd=emu.pca.ystd,
+        eigenvalues=emu.pca.eigenvalues, U=emu.pca.U,
+        log_amp=emu.params.log_amp, log_nugget=emu.params.log_nugget,
+        log_ls=emu.params.log_ls)
+    e64 = emulator_from_numpy(
+        {k: v.double().cpu().numpy() for k, v in arrays.items()},
+        dataclasses.replace(emu.config, jitter=jit32), device=dev,
+        dtype=torch.float64)
+    lp64 = cal.make_log_posterior(e64, y_exp, exp_var)
+    pos = torch.cat([x0[None], chain[-20:]]).reshape(-1, C3_D)
+    with torch.no_grad():
+        a, b = lp(pos).double(), lp64(pos.double())
+    fin = torch.isfinite(b)
+    d_abs = (a - b)[fin].abs().max().item()
+    lp_abs = b[fin].abs()
+    check(d_abs / C3_T <= CAL_F32_NATS_PER_OBS,
+          f"log-posterior float32 vs float64 over {int(fin.sum())} walker "
+          f"positions: max {d_abs:.4g} nats, {d_abs / C3_T:.4g} a "
+          f"observable <= {CAL_F32_NATS_PER_OBS} (|lp64| "
+          f"{lp_abs.min().item():.4g} to {lp_abs.max().item():.4g}; jitter "
+          f"{jit32:.3g} x amp on both) ({smi})")
+
+    # the other samplers, from the equilibrated walkers
+    for name in ("pt", "rwm", "hmc"):
+        run = {"pt": cal.run_parallel_tempering, "rwm": cal.run_rwm,
+               "hmc": cal.run_hmc}[name]
+        kw = {} if name == "pt" else {"n_adapt": CAL_OTHER_STEPS // 2}
+        t0 = time.perf_counter()
+        out = run(gen, lp, xl, CAL_OTHER_STEPS, **kw)
+        torch.cuda.synchronize()
+        w_s = time.perf_counter() - t0
+        a_s = float(out[2])
+        half = out[0][CAL_OTHER_STEPS // 2:]
+        nat_s = (half.double().cpu().numpy()
+                 * emu.scaling.ranges.double().cpu().numpy()
+                 + emu.scaling.mins.double().cpu().numpy())
+        check(0.0 < a_s < 1.0 and bool(torch.isfinite(out[1][-1]).all()),
+              f"{name}: {CAL_W} walkers x {CAL_OTHER_STEPS} steps in "
+              f"{w_s:.3f} s ({CAL_OTHER_STEPS / w_s:.1f} steps/s), "
+              f"acceptance {a_s:.3f}"
+              + (f", swap rate {float(out[3]):.3f}" if name == "pt" else
+                 f", final step {float(out[3]):.4g}")
+              + f"; R-hat of the second half "
+              f"{np.round(cal.gelman_rubin(nat_s), 3).tolist()} ({smi})")
+
+    def small_run(kind, label, e, y, v, steps, walkers, **lp_kw):
+        lpx = cal.make_log_posterior(e, y, v, **lp_kw)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        t0 = time.perf_counter()
+        xs = cal.init_walkers(g, e, lpx, walkers)
+        ch, lq, ac = cal.run_emcee(g, lpx, xs, steps)
+        torch.cuda.synchronize()
+        w_s = time.perf_counter() - t0
+        ac = float(ac)
+        check(0.0 < ac < 1.0 and bool(torch.isfinite(lq[-1]).all()),
+              f"{label}: {walkers} walkers x {steps} emcee steps in "
+              f"{w_s:.3f} s ({steps / w_s:.1f} steps/s, "
+              f"{steps * walkers / w_s:.0f} evaluations/s), acceptance "
+              f"{ac:.3f}, every walker finite ({smi})")
+        half_move_checks(kind, lpx, ch[-1][:walkers // 2])
+        return ch
+
+    ch = small_run("multi-fidelity",
+                   "multi-fidelity (phase 13's emulator, two levels)",
+                   mf_emu, y_exp, exp_var, CAL_OTHER_STEPS, CAL_W)
+    _, mu_m, sd_m, z_m = _posterior_z(ch, CAL_OTHER_STEPS // 4,
+                                      mf_emu.scaling, theta_true)
+    print(f"calibrate multi-fidelity posterior mean "
+          f"{np.round(mu_m, 4).tolist()} (sd {np.round(sd_m, 4).tolist()}),"
+          f" {np.round(z_m, 2).tolist()} sd from the true theta")
+    semu, _, _ = read_snapshot_auto(
+        str(pathlib.Path(work) / "sparse" / "sgpr_1m.npz"), device=dev,
+        dtype=torch.float32)
+    th_s = torch.tensor([[0.3, 0.6, 0.5, 0.7]], dtype=torch.float64)
+    y_s = _truth1m(th_s).numpy() + S_NOISE * crng.standard_normal(1)
+    small_run("sparse", f"sparse (phase 11's N={S_N} snapshot, m={S_M})",
+              semu, y_s, [S_NOISE ** 2], CAL_SMALL_STEPS, CAL_SMALL_W)
+    idata, _ = _iter_data(seed, dev)
+    iemu = _identity_pca_emulator(
+        IterativeMultivariateEmulator, I_D, dev, torch.float32,
+        X=idata.X, Z=idata.y[:, None],
+        params=kernels.GPParams(*(a[None] for a in iter_params)),
+        config=GPConfig(nparams=I_D, regression_order=1))
+    t0 = time.perf_counter()
+    states = precompute_iterative_multivariate(
+        iemu, rank=I_RANK, cg_tol=I_SERVE_TOL, cg_max_iters=I_ITERS,
+        row_chunk=I_ROW_CHUNK)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    th_i = np.array([[0.3, 0.6, 0.5, 0.7, 0.2, 0.4, 0.6, 0.8]])
+    y_i = _truth64k(th_i) + I_NOISE * crng.standard_normal(1)
+    small_run("matrix-free", f"matrix-free (phase 10's N={I_N} emulator, "
+              f"serving cache {pre_s:.2f} s, precond variances)", iemu, y_i,
+              [I_NOISE ** 2], CAL_SMALL_STEPS, CAL_SMALL_W, states=states,
+              variance_method="precond", row_chunk=I_ROW_CHUNK)
+    del states, idata, iemu
+
+    # the CLI over phase 7's snapshot with an experiment file
+    exp = str(pathlib.Path(work) / "config3" / "experiment.txt")
+    draws = str(pathlib.Path(work) / "config3" / "draws.txt")
+    write_experiment_file(exp, y_exp, exp_var)
+    t0 = time.perf_counter()
+    rc, _, err = _run_cli(
+        ["calibrate", state, exp, "--dtype", "float32", "--device", "cuda",
+         "--n_walkers", str(CAL_W), "--n_steps", str(CAL_CLI_STEPS),
+         "--seed", str(seed), "--output", draws])
+    cli_wall = time.perf_counter() - t0
+    rows = (np.loadtxt(draws) if rc == 0 else np.zeros((0, C3_D)))
+    kept = CAL_CLI_STEPS - CAL_CLI_STEPS // 4
+    check(rc == 0 and rows.shape == (kept * CAL_W, C3_D)
+          and bool(np.isfinite(rows).all()),
+          f"CLI calibrate --dtype float32 ({CAL_W} x {CAL_CLI_STEPS}) exit "
+          f"{rc} in {cli_wall:.2f} s (process start included): draws "
+          f"{rows.shape}; stderr tail {err.strip()[-300:]!r}")
+    print(f"calibrate phase wall {time.perf_counter() - t_phase:.1f} s")
+    require(not failed, f"calibrate: {len(failed)} checks failed: {failed}")
+    return launches, checks
+
+
+class _NativeBuild:
+    """native/ (libmadai_emu.so and madai_query) built by make in the
+    background into `out` while the phases before it run; `stop` kills it
+    if it is still running."""
+
+    def __init__(self, out: pathlib.Path):
+        t0 = time.perf_counter()
+        self.seconds, self.out = None, ""
+        self.proc = subprocess.Popen(
+            ["make", "-C", str(ROOT / "native"), f"BUILD={out}"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+        def wait():
+            self.out = self.proc.communicate()[0] or ""
+            self.seconds = time.perf_counter() - t0
+
+        self.thread = threading.Thread(target=wait, daemon=True)
+        self.thread.start()
+
+    def result(self) -> tuple:
+        self.thread.join(timeout=600)
+        return self.proc.returncode, self.out
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.thread.join(timeout=60)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3585,10 +4421,20 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
-    # phases 7 and 10 leave their CLI files here for phase 12
+    # phases 7, 10 and 11 leave their files here for phases 12-14
     work_dir = tempfile.TemporaryDirectory()
     work = pathlib.Path(work_dir.name)
     smi = phase_device()
+    # phase 13 serves a snapshot by native/'s madai_query: built meanwhile
+    native = _NativeBuild(work / "native")
+    try:
+        return _run_phases(args, dev, rng, work, smi, native)
+    finally:
+        native.stop()
+        work_dir.cleanup()
+
+
+def _run_phases(args, dev, rng, work, smi, native) -> int:
     phase_build()
     kernels = phase_kernels(dev, rng, np.random.default_rng([args.seed, 1]))
     phase_goldens(dev)
@@ -3607,7 +4453,11 @@ def main() -> int:
     diag_paths, k23_diag = phase_diagnostics(dev, args.seed, smi, work,
                                              iter_params)
     paths.update(diag_paths)
-    work_dir.cleanup()
+    paths["multifidelity"], mf_emu, mf_checks = phase_multifidelity(
+        dev, args.seed, smi, work, native)
+    paths["calibrate"], cal_checks = phase_calibrate(
+        dev, args.seed, smi, work, iter_params, mf_emu)
+    del mf_emu
     for k in kernels:
         by_path = {p: c.get(k["name"], 0) for p, c in paths.items()}
         k["launches_by_path"] = by_path
@@ -3638,6 +4488,17 @@ def main() -> int:
                     k["max_abs_err"] = max(k["max_abs_err"],
                                            reading["max_abs_err"])
                 k["diagnostics"] = {label: reading}
+        for cell, checks in (("multifidelity", mf_checks),
+                             ("calibrate", cal_checks)):
+            # every shape each new path handed the kernel; K2 and K3 at
+            # fitted thetas are gated by their backward errors, as above
+            readings = checks.get(k["name"], {})
+            if readings:
+                k[cell] = readings
+                k["max_abs_err"] = max(
+                    [k["max_abs_err"]] + [r["max_abs_err"] for r in
+                                          readings.values()
+                                          if "backward_err" not in r])
         if k["name"] == "panel_factor":
             # the gradient path's lane batch (16, 512, 512)
             k["max_abs_err"] = max(k["max_abs_err"], k3_grad["max_abs_err"])

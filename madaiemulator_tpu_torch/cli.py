@@ -1,8 +1,10 @@
 """`interactive_emulator_torch` command-line tool (port of
-madaiemulator_tpu/cli.py: `estimate_thetas` on the dense, the matrix-free
-and the sparse path, `interactive_mode`, `print_thetas`, `convert` and
-`validate` on the dense and the sparse snapshot, as text or as .npz by the
-state file's extension).
+madaiemulator_tpu/cli.py: `estimate_thetas` on the dense, the matrix-free,
+the sparse and the multi-fidelity path, `interactive_mode`, `print_thetas`,
+`convert` and `validate` on the dense, the sparse and the multi-fidelity
+snapshot, as text or as .npz by the state file's extension, and
+`calibrate`). The JAX CLI's `design` and `sensitivity` are not ported:
+argparse rejects them (exit 2).
 
     interactive_emulator_torch estimate_thetas <model_file> <state_file>
         [--regression_order=N] [--covariance_fn=NAME] [--pca_variance=P]
@@ -33,18 +35,22 @@ trains sparse (SGPR, models/sparse.py: M greedy-maximin inducing points, an
 O(N M^2) ELBO; --row_chunk streams the N axis in chunks of C rows,
 --inducing_opt_steps refines the inducing points by K Adam steps) and
 writes the sparse snapshot; it composes with --noise_file and
---gradients_file and excludes --fit_method=iterative and --alpha_grid. What
-is not yet ported exits 2 with one line on stderr: --cholesky_method=blocked,
-a MULTIFIDELITY model file.
+--gradients_file and excludes --fit_method=iterative and --alpha_grid. A
+MULTIFIDELITY model file (io/modelfile.read_multifidelity_model_file) trains
+the AR(1) co-kriging emulator (models/multifidelity.py; scalar, or
+multivariate with its `noutputs` header: one shared PCA basis), every level
+dense, and writes the multi-fidelity snapshot; --noise_file,
+--gradients_file, --alpha_grid, --inducing and --fit_method=iterative exit
+2 there. --cholesky_method=blocked is not ported and exits 2 with one line
+on stderr.
 
     interactive_emulator_torch print_thetas <state_file>
         prints the fitted per-component hyperparameters (natural space).
 
     interactive_emulator_torch convert <in_state> <out_state>
-        re-encodes a dense or sparse snapshot between text and .npz (by
-        extension; the JAX CLI's output byte for byte in text, key for key
-        in .npz). Multi-fidelity snapshots, in either encoding, exit 2 with
-        one line.
+        re-encodes a dense, sparse or multi-fidelity snapshot between text
+        and .npz (by extension; the JAX CLI's output byte for byte in text,
+        key for key in .npz).
 
     interactive_emulator_torch validate <state_file> [--model_file=M]
         [--interval=P] [--output=PATH] [--dtype=float64|float32]
@@ -56,7 +62,24 @@ a MULTIFIDELITY model file.
         (--matrix_free: no dense factorization anywhere); prints rmse /
         coverage / standardized-residual moments, --output writes the
         per-point table. A sparse snapshot validates by its training
-        residuals against --model_file. Multi-fidelity snapshots exit 2.
+        residuals against --model_file; a multi-fidelity one by per-level
+        closed-form LOO (level<k>_* lines; --holdout, --matrix_free and
+        --model_file exit 2 there).
+
+    interactive_emulator_torch calibrate <state_file> <experiment_file>
+        [--n_walkers=W] [--n_steps=S] [--burn_in=B] [--thin=K]
+        [--sampler=emcee|pt|rwm|hmc] [--discrepancy] [--seed=K]
+        [--dtype=float64|float32] [--device=cuda|cpu] [--output=PATH]
+        [--quiet] [--matrix_free [--rank=K] [--cg_tol=T]
+        [--cg_max_iters=I]]
+        MCMC over the emulator in process (models/calibrate.py): the
+        experiment file (io/experiment.py: <noutputs>, then one "<value>
+        <variance>" row per observable) against the emulator's marginalized
+        Gaussian likelihood; posterior draws to --output ('-' is stdout, one
+        draw a row, '#' header), a per-parameter summary with R-hat and ESS
+        on stderr. --matrix_free calibrates a dense snapshot through the
+        matrix-free serving cache (sparse and multi-fidelity snapshots exit
+        2 with it).
 
     interactive_emulator_torch interactive_mode <state_file>
         [--dtype=float64|float32] [--device=cuda|cpu]
@@ -72,7 +95,9 @@ answers each batch by PCG (--variance_method=exact, in column blocks of
 --variance_rhs) or by the preconditioner's Woodbury apply ("precond"), in
 chunks of --query_chunk queries. A gradient-enhanced (version 3) snapshot
 serves dense only and exits 2 on either; a sparse snapshot serves from its
-O(m^2) state and exits 2 on either too.
+O(m^2) state and exits 2 on either too, and a multi-fidelity snapshot
+serves its highest fidelity through the recursive dense predict (either
+exits 2).
 interactive_mode reads query points (nparams whitespace-separated floats)
 on stdin until EOF
 and writes t means then t variances per query on stdout, "%.17g", flushing
@@ -82,8 +107,9 @@ Every complete point already buffered on the pipe is answered in one batched
 call (at most 1024 points per call).
 
 --device cuda (the default) needs a CUDA device: without one
-`estimate_thetas` and `interactive_mode` exit 2 with "error: CUDA device
-not available" (they never move to the CPU by themselves). At float32 the
+`estimate_thetas`, `interactive_mode`, `validate` and `calibrate` exit 2
+with "error: CUDA device not available" (they never move to the CPU by
+themselves). At float32 the
 fit and the serve path run on the Hopper kernels; float64 (the default)
 takes the library path. Also runnable as `python -m madaiemulator_tpu_torch.cli`.
 """
@@ -248,6 +274,57 @@ def _build_parser() -> argparse.ArgumentParser:
     cvt.add_argument("in_state")
     cvt.add_argument("out_state")
 
+    cal = sub.add_parser(
+        "calibrate",
+        help="MCMC-calibrate parameters against observed data (in-process)",
+        description=(
+            "Sample the parameter posterior given experimental observations "
+            "using the trained emulator, in process (models/calibrate.py: "
+            "one batched emulator evaluation over the walkers a move, on "
+            "the device). The experiment file format is: first line "
+            "<noutputs>, then one '<value> <variance>' row per observable "
+            "in snapshot output order ('#' comments allowed)."
+        ),
+    )
+    cal.add_argument("state_file")
+    cal.add_argument("experiment_file")
+    cal.add_argument("--n_walkers", type=int, default=64)
+    cal.add_argument("--n_steps", type=int, default=1000)
+    cal.add_argument("--burn_in", type=int, default=None,
+                     help="steps discarded (default: n_steps/4)")
+    cal.add_argument("--thin", type=int, default=1)
+    cal.add_argument(
+        "--sampler", choices=["emcee", "pt", "rwm", "hmc"], default="emcee",
+        help="'pt' = parallel tempering (use when R-hat stays high: "
+        "multimodal posteriors); 'hmc' = Hamiltonian MC with autodiff "
+        "gradients through the emulator",
+    )
+    cal.add_argument(
+        "--discrepancy", action="store_true",
+        help="sample a Kennedy-O'Hagan model-discrepancy scale jointly "
+        "with the parameters (reported as a fraction of each observable's "
+        "training std dev)",
+    )
+    cal.add_argument("--seed", type=int, default=0)
+    cal.add_argument("--dtype", choices=["float64", "float32"],
+                     default="float64")
+    cal.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    cal.add_argument(
+        "--output", default="-", metavar="PATH",
+        help="posterior samples destination ('-' = stdout): one draw per "
+        "row, nparams columns, '#' header",
+    )
+    cal.add_argument("--quiet", action="store_true")
+    cal.add_argument(
+        "--matrix_free", action="store_true",
+        help="calibrate a dense snapshot through the matrix-free serving "
+        "cache (PCG-free Woodbury variance): the route past dense memory",
+    )
+    cal.add_argument("--rank", type=int, default=64,
+                     help="matrix-free: preconditioner rank")
+    cal.add_argument("--cg_tol", type=float, default=1e-6)
+    cal.add_argument("--cg_max_iters", type=int, default=256)
+
     val = sub.add_parser(
         "validate",
         help="leave-one-out validation of a trained emulator",
@@ -364,7 +441,7 @@ def cmd_estimate_thetas(args) -> int:
         return _error("CUDA device not available")
     try:
         if is_multifidelity_model_file(args.model_file):
-            return _error("MULTIFIDELITY model files are not yet ported")
+            return _estimate_thetas_multifidelity(args, cov)
         mf = read_model_file(args.model_file)
     except (OSError, ValueError) as e:
         return _error(f"{args.model_file}: {e}")
@@ -455,6 +532,93 @@ def cmd_estimate_thetas(args) -> int:
     return 0
 
 
+def _estimate_thetas_multifidelity(args, cov) -> int:
+    """estimate_thetas on a MULTIFIDELITY model file: AR(1) co-kriging over
+    the levels (models/multifidelity.py; multivariate with one shared PCA
+    basis when the file has a `noutputs` header), then the multi-fidelity
+    snapshot."""
+    import torch
+
+    from madaiemulator_tpu_torch.io.modelfile import (
+        read_multifidelity_model_file,
+    )
+    from madaiemulator_tpu_torch.io.snapshot import write_snapshot_auto
+    from madaiemulator_tpu_torch.models.multifidelity import (
+        fit_multifidelity,
+        fit_multivariate_multifidelity,
+    )
+    from madaiemulator_tpu_torch.utils.config import GPConfig
+
+    if args.fit_method == "iterative":
+        return _error("multi-fidelity training is dense per level (the "
+                      "expensive levels are small by construction); drop "
+                      "--fit_method=iterative")
+    # flags the MF route cannot honor fail fast: a single --noise_file
+    # cannot express per-level noise (the library API takes it per level)
+    unsupported = [name for name, val in (
+        ("--noise_file", args.noise_file),
+        ("--gradients_file", args.gradients_file),
+        ("--alpha_grid", args.alpha_grid),
+        ("--inducing", args.inducing)) if val]
+    if unsupported:
+        return _error(f"{', '.join(unsupported)} not supported with "
+                      "MULTIFIDELITY model files (per-level noise and the "
+                      "other modalities go through the library API, "
+                      "models/multifidelity.py)")
+    try:
+        mf = read_multifidelity_model_file(args.model_file)
+    except ValueError as e:
+        return _error(f"bad multi-fidelity model file: {e}")
+    dtype = torch.float64 if args.dtype == "float64" else torch.float32
+    dev = torch.device(args.device)
+
+    def t(a):
+        return None if a is None else torch.tensor(a, dtype=dtype, device=dev)
+
+    cfg = GPConfig(
+        nparams=mf.nparams,
+        covariance=cov,
+        regression_order=args.regression_order,
+        n_restarts=args.restarts,
+        max_opt_steps=args.steps,
+        cholesky_method=args.cholesky_method,
+        gram_method=args.gram_method,
+        cholesky_update_precision=args.update_precision,
+        linesearch=args.linesearch,
+    )
+    gen = torch.Generator().manual_seed(args.seed)
+    designs = [t(X) for X in mf.designs]
+    targets = [t(Y) for Y in mf.targets]
+    lower = [t(lv) for lv in mf.lower_values]
+    if mf.noutputs > 1:
+        emu = fit_multivariate_multifidelity(
+            gen, designs, targets, cfg, pca_variance=args.pca_variance,
+            lower_values=lower, restart_chunk=args.restart_chunk)
+        names = mf.output_names
+        desc = (f"{emu.n_levels} fidelity level(s), d={mf.nparams}, "
+                f"t={emu.n_outputs} -> r={emu.n_components} components")
+    else:
+        emu = fit_multifidelity(gen, designs, targets, cfg,
+                                lower_values=lower,
+                                restart_chunk=args.restart_chunk)
+        names = [mf.output_name]
+        desc = f"{emu.n_levels} fidelity level(s), d={mf.nparams}"
+    if not args.quiet:
+        for k, lv in enumerate(emu.levels):
+            n_k = (lv.X if mf.noutputs > 1 else lv.data.X).shape[0]
+            rho = ""
+            if k > 0:
+                r = lv.rho.detach().cpu().double().numpy()
+                rho = (f", rho={np.array2string(r, precision=6)}"
+                       if mf.noutputs > 1 else f", rho={float(r):.6g}")
+            print(f"level {k}: N={n_k}{rho}", file=sys.stderr)
+    write_snapshot_auto(args.state_file, emu, param_names=mf.param_names,
+                        output_names=names)
+    if not args.quiet:
+        print(f"wrote {args.state_file}: {desc}", file=sys.stderr)
+    return 0
+
+
 def _estimate_sparse(args, mf, gen, X, Y, cfg, noise, gradients) -> int:
     """estimate_thetas --inducing: the sparse multivariate fit (one SGPR
     per PC on a shared inducing set) -> the sparse snapshot."""
@@ -489,7 +653,8 @@ def _read_container(path: str):
     serve-time factorizations, or for a gradient-enhanced (version 3)
     snapshot, which has none, the dense emulator (joint systems are small
     by construction), as the JAX CLI's convert does; a sparse snapshot is
-    its serve state."""
+    its serve state, a multi-fidelity one its levels with their states
+    rebuilt (small by construction)."""
     import torch
 
     from madaiemulator_tpu_torch.io.snapshot import read_snapshot_auto
@@ -502,11 +667,52 @@ def _read_container(path: str):
         return read_snapshot_auto(path, device=cpu, dtype=torch.float64)
 
 
+def _print_thetas_multifidelity(emu) -> None:
+    """print_thetas of a multi-fidelity snapshot: every level's thetas and,
+    from level 1 on, its rho (per component when multivariate)."""
+    from madaiemulator_tpu_torch.models.multifidelity import (
+        MultivariateMultiFidelityEmulator,
+    )
+
+    def nat(a):
+        return np.exp(a.detach().cpu().numpy())
+
+    if isinstance(emu, MultivariateMultiFidelityEmulator):
+        print(f"# {emu.n_levels} fidelity level(s) x {emu.n_components} "
+              "component(s); thetas = [amp nugget length_scales...] "
+              "(+ rho for levels >= 1)")
+        for k, lv in enumerate(emu.levels):
+            amp, nug, ls = (nat(a) for a in lv.params)
+            rho = lv.rho.detach().cpu().numpy()
+            for i in range(amp.shape[0]):
+                line = (f"level {k} component {i}  "
+                        + " ".join(f"{v:.17g}"
+                                   for v in [amp[i], nug[i], *ls[i]]))
+                if k > 0:
+                    line += f"  rho {rho[i]:.17g}"
+                print(line)
+        return
+    print(f"# {emu.n_levels} fidelity level(s); thetas = "
+          "[amp nugget length_scales...] (+ rho for levels >= 1)")
+    for k, lv in enumerate(emu.levels):
+        amp, nug, ls = (nat(a) for a in lv.params)
+        line = " ".join(f"{v:.17g}" for v in [float(amp), float(nug),
+                                              *ls.ravel()])
+        if k > 0:
+            line += f"  rho {float(lv.rho):.17g}"
+        print(line)
+
+
 def cmd_print_thetas(args) -> int:
+    from madaiemulator_tpu_torch.models.multifidelity import is_multifidelity
+
     try:
         emu, _, _ = _read_container(args.state_file)
     except (OSError, ValueError) as e:
         return _error(f"{args.state_file}: {e}")
+    if is_multifidelity(emu):
+        _print_thetas_multifidelity(emu)
+        return 0
     amp = np.exp(emu.params.log_amp.numpy())
     nug = np.exp(emu.params.log_nugget.numpy())
     ls = np.exp(emu.params.log_ls.numpy())
@@ -520,6 +726,10 @@ def cmd_print_thetas(args) -> int:
 
 def cmd_convert(args) -> int:
     from madaiemulator_tpu_torch.io.snapshot import write_snapshot_auto
+    from madaiemulator_tpu_torch.models.multifidelity import (
+        MultiFidelityEmulator,
+        MultivariateMultiFidelityEmulator,
+    )
     from madaiemulator_tpu_torch.models.sparse import is_sparse
 
     try:
@@ -528,7 +738,14 @@ def cmd_convert(args) -> int:
         return _error(f"{args.in_state}: {e}")
     write_snapshot_auto(args.out_state, emu, param_names=param_names,
                         output_names=output_names)
-    if is_sparse(emu):
+    if isinstance(emu, MultivariateMultiFidelityEmulator):
+        desc = (f"{emu.n_levels} fidelity level(s), "
+                f"d={emu.levels[0].X.shape[1]}, t={emu.n_outputs} "
+                f"-> r={emu.n_components} components")
+    elif isinstance(emu, MultiFidelityEmulator):
+        desc = (f"{emu.n_levels} fidelity level(s), "
+                f"d={emu.levels[0].data.X.shape[1]}")
+    elif is_sparse(emu):
         desc = (f"sparse (SGPR), {emu.n_components} component(s), "
                 f"m={emu.Z.shape[0]} inducing, d={emu.Z.shape[1]}, "
                 f"t={len(output_names)}")
@@ -543,6 +760,12 @@ def cmd_interactive_mode(args) -> int:
     import torch
 
     from madaiemulator_tpu_torch.io.snapshot import read_snapshot_auto
+    from madaiemulator_tpu_torch.models.multifidelity import (
+        MultivariateMultiFidelityEmulator,
+        is_multifidelity,
+        predict_multifidelity,
+        predict_multivariate_multifidelity,
+    )
     from madaiemulator_tpu_torch.models.multivariate import (
         precompute_fast_multivariate,
         precompute_iterative_multivariate,
@@ -570,7 +793,22 @@ def cmd_interactive_mode(args) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     predict = predict_multivariate
-    if is_sparse(emu):
+    if is_multifidelity(emu):
+        if args.serve_method != "dense":
+            print(
+                "error: multi-fidelity snapshots serve dense only "
+                "(per-level cross-covariance GEMM + TRSMs); drop "
+                f"--serve_method={args.serve_method}",
+                file=sys.stderr,
+            )
+            return 2
+        if isinstance(emu, MultivariateMultiFidelityEmulator):
+            predict = predict_multivariate_multifidelity
+        else:
+            def predict(e, q):
+                mean, var = predict_multifidelity(e, q)
+                return mean[:, None], var[:, None]  # scalar -> (m, 1)
+    elif is_sparse(emu):
         if args.serve_method != "dense":
             print(
                 "error: sparse (SGPR) snapshots already serve from an "
@@ -748,6 +986,87 @@ def _validate_sparse(emu, output_names, args, dtype, dev) -> int:
     return 0
 
 
+def _validate_multifidelity(emu, output_names, args) -> int:
+    """Per-level closed-form LOO of a multi-fidelity snapshot: each level is
+    an ordinary GP with the lower level's values as one GLS basis column,
+    so the identity applies level by level with that column held fixed
+    (models/diagnostics.py loo_cv_multifidelity[_mv]); a multivariate one
+    is summarized in observable space against the shared-PCA
+    representation of each level's stored targets."""
+    from madaiemulator_tpu_torch.models.diagnostics import (
+        loo_cv_multifidelity,
+        loo_cv_multifidelity_mv,
+        reconstruct_level_targets_mv,
+        validation_summary,
+    )
+    from madaiemulator_tpu_torch.models.multifidelity import (
+        MultivariateMultiFidelityEmulator,
+    )
+
+    if args.holdout is not None or args.matrix_free:
+        return _error(
+            "--holdout/--matrix_free do not apply to multi-fidelity "
+            "snapshots (every level is small and dense by construction); "
+            "per-level closed-form LOO is the validation route")
+    mv = isinstance(emu, MultivariateMultiFidelityEmulator)
+    if args.model_file is not None:
+        return _error(
+            "--model_file is not supported for multi-fidelity snapshots ("
+            + ("levels are validated against the targets stored in the "
+               "snapshot)" if mv else
+               "levels are scalar-output and validated in their own target "
+               "units against the level data stored in the snapshot)"))
+    rows = []
+    if mv:
+        for k, (res, loo_mean, loo_var) in enumerate(
+                loo_cv_multifidelity_mv(emu)):
+            if not bool(res.ok.all()):
+                print(f"error: level {k} has component(s) with no valid "
+                      "factorization", file=sys.stderr)
+                return 1
+            Y_true = reconstruct_level_targets_mv(emu, k)
+            s = validation_summary(loo_mean, loo_var, Y_true,
+                                   interval=args.interval)
+            print(f"# level {k} LOO validation (observable space vs "
+                  f"retained-PCA reconstruction, lower-level basis columns "
+                  f"held fixed): N={emu.levels[k].X.shape[0]}, "
+                  f"t={emu.n_outputs}, r={emu.n_components}")
+            for key, v in s.items():
+                print(f"level{k}_{key} {v:.17g}")
+            rows.append((k, loo_mean, loo_var, Y_true))
+        head = ("# per-point LOO by level: level "
+                + " ".join(f"loo_mean_{s_}" for s_ in output_names) + " "
+                + " ".join(f"loo_variance_{s_}" for s_ in output_names)
+                + " " + " ".join(f"true_{s_}" for s_ in output_names))
+    else:
+        for k, (res, lv) in enumerate(zip(loo_cv_multifidelity(emu),
+                                          emu.levels)):
+            if not bool(res.ok):
+                print(f"error: level {k} has no valid factorization",
+                      file=sys.stderr)
+                return 1
+            s = validation_summary(res.mean, res.variance, lv.data.y,
+                                   interval=args.interval)
+            print(f"# level {k} LOO validation (target units y_{k}, "
+                  f"lower-level basis column held fixed): "
+                  f"N={lv.data.y.shape[0]}")
+            for key, v in s.items():
+                print(f"level{k}_{key} {v:.17g}")
+            rows.append((k, res.mean[:, None], res.variance[:, None],
+                         lv.data.y[:, None]))
+        head = "# per-point LOO by level: level loo_mean loo_variance true"
+    if args.output is not None:
+        with open(args.output, "w") as f:
+            f.write(head + "\n")
+            for k, *cols in rows:
+                cols = [c.detach().cpu().numpy() for c in cols]
+                for i in range(cols[0].shape[0]):
+                    row = np.concatenate([c[i] for c in cols])
+                    f.write(f"{k} " + " ".join(f"{v:.17g}" for v in row)
+                            + "\n")
+    return 0
+
+
 def cmd_validate(args) -> int:
     import torch
 
@@ -759,6 +1078,7 @@ def cmd_validate(args) -> int:
         reconstruct_training_outputs,
         validation_summary,
     )
+    from madaiemulator_tpu_torch.models.multifidelity import is_multifidelity
     from madaiemulator_tpu_torch.models.sparse import is_sparse
 
     if args.matrix_free and args.holdout is None:
@@ -773,9 +1093,10 @@ def cmd_validate(args) -> int:
             args.state_file, device=dev, dtype=dtype,
             build_states=not args.matrix_free)
     except ValueError as e:
-        # a gradient-enhanced (v3) snapshot with --matrix_free, or a
-        # multi-fidelity one (not yet ported)
+        # a gradient-enhanced (v3) snapshot with --matrix_free
         return _error(str(e))
+    if is_multifidelity(emu):
+        return _validate_multifidelity(emu, output_names, args)
     if is_sparse(emu):
         return _validate_sparse(emu, output_names, args, dtype, dev)
     Y_true = None
@@ -824,6 +1145,91 @@ def cmd_validate(args) -> int:
     return 0
 
 
+def cmd_calibrate(args) -> int:
+    import torch
+
+    from madaiemulator_tpu_torch.io.experiment import read_experiment_file
+    from madaiemulator_tpu_torch.io.snapshot import read_snapshot_auto
+    from madaiemulator_tpu_torch.models.calibrate import calibrate
+    from madaiemulator_tpu_torch.models.multifidelity import is_multifidelity
+    from madaiemulator_tpu_torch.models.sparse import is_sparse
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        return _error("CUDA device not available")
+    dtype = torch.float64 if args.dtype == "float64" else torch.float32
+    dev = torch.device(args.device)
+    try:
+        emu, param_names, output_names = read_snapshot_auto(
+            args.state_file, device=dev, dtype=dtype,
+            build_states=not args.matrix_free)
+    except ValueError as e:
+        # e.g. a gradient-enhanced (v3) snapshot with --matrix_free
+        return _error(str(e))
+    if is_sparse(emu) and args.matrix_free:
+        return _error("sparse (SGPR) snapshots already calibrate against "
+                      "the O(m^2) serve state; drop --matrix_free")
+    if is_multifidelity(emu) and args.matrix_free:
+        return _error("multi-fidelity snapshots calibrate through the "
+                      "recursive dense predict (levels are small by "
+                      "construction); drop --matrix_free")
+    states = None
+    if args.matrix_free:
+        from madaiemulator_tpu_torch.models.multivariate import (
+            precompute_iterative_multivariate,
+        )
+
+        states = precompute_iterative_multivariate(
+            emu, rank=args.rank, cg_tol=args.cg_tol,
+            cg_max_iters=args.cg_max_iters)
+    try:
+        y_exp, exp_var = read_experiment_file(args.experiment_file)
+    except ValueError as e:
+        return _error(f"bad experiment file: {e}")
+    if y_exp.shape[0] != len(output_names):
+        return _error(f"experiment file has {y_exp.shape[0]} observable(s) "
+                      f"but the snapshot produces {len(output_names)}")
+    try:
+        res = calibrate(
+            torch.Generator(device=dev).manual_seed(args.seed), emu, y_exp,
+            exp_var, n_walkers=args.n_walkers, n_steps=args.n_steps,
+            burn_in=args.burn_in, thin=args.thin, sampler=args.sampler,
+            discrepancy=args.discrepancy, states=states)
+    except ValueError as e:
+        return _error(str(e))
+    s = res.summary()
+    if not args.quiet:
+        print(f"calibrate: {res.samples.shape[0] * res.samples.shape[1]} "
+              f"draws ({res.samples.shape[1]} walkers x "
+              f"{res.samples.shape[0]} kept steps), acceptance "
+              f"{res.acceptance:.3f}", file=sys.stderr)
+        for j, name in enumerate(param_names):
+            print(f"  {name}: {s['mean'][j]:.6g} +- {s['std'][j]:.3g}  "
+                  f"[{s['q05'][j]:.6g}, {s['q95'][j]:.6g}]  "
+                  f"rhat={res.rhat[j]:.3f} ess={res.ess[j]:.0f}",
+                  file=sys.stderr)
+        if res.discrepancy is not None:
+            dflat = res.discrepancy.reshape(-1)
+            print(f"  discrepancy scale (x output std): "
+                  f"{dflat.mean():.4g} +- {dflat.std():.3g}  "
+                  f"[{np.quantile(dflat, 0.05):.4g}, "
+                  f"{np.quantile(dflat, 0.95):.4g}]  "
+                  f"rhat={res.rhat[-1]:.3f} ess={res.ess[-1]:.0f}",
+                  file=sys.stderr)
+        if res.rhat.max() > 1.1:
+            print("warning: max R-hat > 1.1 — chains may not have "
+                  "converged; increase --n_steps", file=sys.stderr)
+    flat = res.samples.reshape(-1, res.samples.shape[-1])
+    dest = sys.stdout if args.output == "-" else open(args.output, "w")
+    try:
+        dest.write("# posterior samples: " + " ".join(param_names) + "\n")
+        for row in flat:
+            dest.write(" ".join(f"{v:.17g}" for v in row) + "\n")
+    finally:
+        if dest is not sys.stdout:
+            dest.close()
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = _build_parser().parse_args(argv)
     commands = {
@@ -832,6 +1238,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         "print_thetas": cmd_print_thetas,
         "convert": cmd_convert,
         "validate": cmd_validate,
+        "calibrate": cmd_calibrate,
     }
     try:
         return commands[args.command](args)

@@ -1,6 +1,5 @@
 """Emulator validation diagnostics and posterior sampling (port of
-madaiemulator_tpu/models/diagnostics.py; the multi-fidelity twins are not
-yet ported).
+madaiemulator_tpu/models/diagnostics.py).
 
   * Closed-form leave-one-out cross-validation for the universal-kriging
     (GLS mean) GP, with no refits: with the projected precision
@@ -19,6 +18,10 @@ yet ported).
     matrix-free.
   * Multivariate (PCA) variants, batched over the component axis (the JAX
     package vmaps it), rotated back to observable space.
+  * Per-level LOO of a multi-fidelity emulator (scalar and multivariate):
+    each level is an ordinary GP whose GLS basis carries the lower level's
+    values as one column, so the identity applies level by level with that
+    column held fixed.
 
 Random draws (the holdout permutation and the standard normals of the
 posterior draws) come from an explicit `torch.Generator`, each through one
@@ -424,6 +427,56 @@ def holdout_summary_multivariate(
     Y_true = torch.as_tensor(Y_true)
     Y_true = Y_true[torch.tensor(hold, device=Y_true.device)]
     return validation_summary(mean, var, Y_true, interval=interval)
+
+
+@torch.no_grad()
+def loo_cv_multifidelity(emu) -> list:
+    """Per-level closed-form LOO for a recursive co-kriging emulator: each
+    level k is an ordinary GP regression of y_k with the lower level's
+    values as one GLS basis column, so leaving out point i of level k
+    re-estimates (beta, rho_k) on the remaining points with that column
+    held FIXED (conditioned on the lower levels, the usual co-kriging
+    convention; the lower levels are validated by their own entries). One
+    factorization reuse a level: the states are already built.
+
+    Returns n_levels LOOResult, entry k in level-k target units."""
+    return [_loo_from_state(lv.state, lv.data.y) for lv in emu.levels]
+
+
+def loo_summary_multifidelity(emu, interval: float = 0.95) -> list:
+    """`validation_summary` per level (see `loo_cv_multifidelity`)."""
+    return [
+        validation_summary(r.mean, r.variance, lv.data.y, interval=interval)
+        for r, lv in zip(loo_cv_multifidelity(emu), emu.levels)
+    ]
+
+
+@torch.no_grad()
+def loo_cv_multifidelity_mv(emu) -> list:
+    """Per-level LOO for a MULTIVARIATE multi-fidelity emulator: the
+    identity per level and per component (the lower-level columns held
+    fixed, as in `loo_cv_multifidelity`), batched over the components, then
+    rotated to observable space. Returns n_levels entries (LOOResult with
+    (r, N_k) fields, loo_mean (N_k, t), loo_var (N_k, t)); the ground truth
+    of level k is `reconstruct_level_targets_mv(emu, k)`."""
+    out = []
+    for lv in emu.levels:
+        res = _loo_from_state(lv.states, lv.Z.mT)  # (r, N_k)
+        loo_mean, loo_var = reconstruct_observables(res.mean, res.variance,
+                                                    emu.pca)
+        out.append((res, loo_mean, loo_var))
+    return out
+
+
+def reconstruct_level_targets_mv(emu, k: int) -> torch.Tensor:
+    """Level k's training targets as the retained-r shared PCA subspace
+    represents them, (N_k, t): the truncation-free ground truth of
+    `loo_cv_multifidelity_mv` (see `reconstruct_training_outputs`)."""
+    pca, Z = emu.pca, emu.levels[k].Z
+    sqrt_lam = torch.sqrt(pca.eigenvalues.to(Z.dtype))
+    return pca.ymean.to(Z.dtype)[None, :] + (
+        (Z * sqrt_lam[None, :]) @ pca.U.to(Z.dtype).mT
+    ) * pca.ystd.to(Z.dtype)[None, :]
 
 
 def training_residuals_sparse(

@@ -130,14 +130,16 @@ def _unflatten(u: torch.Tensor) -> GPParams:
 
 
 def _lane_objective(X, y, noise, config: GPConfig, lo, hi, stats: dict,
-                    dY=None, dY_noise=None, lml_fn=None):
+                    dY=None, dY_noise=None, lml_fn=None, h_extra=None):
     """Batched objective of (B, P) iterates, lane b fitting targets y[b]
-    (gradients dY[b], if given) on design X[b] (X (N, d) and y (N,) may be
+    (gradients dY[b], extra GLS columns h_extra[b], if given) on design
+    X[b] (X (N, d) and y (N,) may be
     shared by every lane): (value_and_grad, value) closures over -lml_fn
     (default `log_marginal_likelihood`; any (params, data, config) -> (B,)
     log-likelihood differentiable by torch autograd), counting their calls
     in `stats`."""
-    data = GPData(X=X, y=y, noise=noise, dY=dY, dY_noise=dY_noise)
+    data = GPData(X=X, y=y, noise=noise, h_extra=h_extra, dY=dY,
+                  dY_noise=dY_noise)
     if lml_fn is None:
         lml_fn = log_marginal_likelihood
 
@@ -176,17 +178,18 @@ def fit_one_start(
     dY: torch.Tensor | None = None,
     dY_noise: torch.Tensor | None = None,
     lml_fn=None,
+    h_extra: torch.Tensor | None = None,
 ) -> Tuple[GPParams, torch.Tensor]:
     """LBFGS trajectories from a batch of unconstrained starts u0 (leading
     lane axis B), all in lock step (`models.lbfgs.run_lbfgs`, optax's
     algorithm with `config.linesearch`). X is (N, d) shared by every lane,
     or (B, N, d), one design per lane (an ensemble); y is (N,) or (B, N);
-    noise likewise, and the gradient blocks dY, dY_noise (N, d) or
-    (B, N, d). The JAX function runs one start and is vmapped by its
-    callers (`in_axes=(0, 0, 0)` for an ensemble); this one takes the
+    noise likewise, the gradient blocks dY, dY_noise (N, d) or
+    (B, N, d), and the extra GLS columns h_extra (N, q) or (B, N, q)
+    (`GPData.h_extra`). The JAX function runs one start and is vmapped by
+    its callers (`in_axes=(0, 0, 0)` for an ensemble); this one takes the
     batch.
-    Returns (best_u, best_neg_loglik (B,)) in u0's dtype. The JAX
-    function's h_extra is not yet ported.
+    Returns (best_u, best_neg_loglik (B,)) in u0's dtype.
     `stats`, when given, accumulates the objective evaluation counts.
     `lml_fn` overrides the objective as in `fit_gp_host` (the sparse fit
     passes its ELBO); None is `log_marginal_likelihood`.
@@ -195,7 +198,8 @@ def fit_one_start(
     lo, hi = _bounds_arrays(config, dtype, X.device)
     stats = _new_stats() if stats is None else stats
     vg, v = _lane_objective(X, y, noise, config, lo, hi, stats, dY=dY,
-                            dY_noise=dY_noise, lml_fn=lml_fn)
+                            dY_noise=dY_noise, lml_fn=lml_fn,
+                            h_extra=h_extra)
     res = lbfgs.run_lbfgs(
         _flatten_t(u0).to(device=X.device, dtype=dtype), vg, v, max_steps,
         segments=(1, 1, config.num_length_scales),
@@ -525,10 +529,12 @@ def _fit_lanes(
     stats: dict | None = None,
     dY: torch.Tensor | None = None,
     dY_noise: torch.Tensor | None = None,
+    h_extra: torch.Tensor | None = None,
 ) -> FitResult:
     """L-BFGS over G x R lanes from unconstrained starts u0 (G, R, P): lane
     (g, r) fits targets Y[g] (noise[g], gradients dY[g] and their variances
-    dY_noise[g], each optional) on design X, the (N, d) one shared
+    dY_noise[g], extra GLS columns h_extra[g] (N, q), each optional) on
+    design X, the (N, d) one shared
     by every lane or X[g] of (G, N, d). The lanes run as one lock-step
     `fit_one_start` batch, or in sequential blocks of group_chunk groups x
     restart_chunk restarts (the same result, less memory). The argmax over
@@ -556,7 +562,9 @@ def _fit_lanes(
                 stats=stats,
                 dY=None if dY is None else _repeat_lanes(dY[g], k),
                 dY_noise=(None if dY_noise is None
-                          else _repeat_lanes(dY_noise[g], k)))
+                          else _repeat_lanes(dY_noise[g], k)),
+                h_extra=(None if h_extra is None
+                         else _repeat_lanes(h_extra[g], k)))
             best_u[g, r] = _flatten_t(bu).reshape(ub.shape)
             best_negll[g, r] = bv.reshape(ub.shape[:2])
     lo, hi = _bounds_arrays(config, dtype, dev)
@@ -586,10 +594,12 @@ def _fit_components(
     noise: torch.Tensor | None = None,
     dY: torch.Tensor | None = None,
     dY_noise: torch.Tensor | None = None,
+    h_extra: torch.Tensor | None = None,
 ) -> FitResult:
     """`fit_gp` for r GPs on one design at once: Y (r, N) holds each
     component's targets (noise, if given, (r, N) its noise variances; dY
-    and dY_noise, if given, (r, N, d) its gradient blocks). The
+    and dY_noise, if given, (r, N, d) its gradient blocks; h_extra, if
+    given, (r, N, q) its extra GLS columns). The
     (r x R) lanes run as one lock-step batch, or in groups of restart_chunk
     restarts of every component (`_fit_lanes`)."""
     R = config.n_restarts if n_restarts is None else n_restarts
@@ -616,7 +626,8 @@ def _fit_components(
     _, value = _lane_objective(X, _repeat_lanes(Y, R),
                                _repeat_lanes(noise, R), config, lo, hi, stats,
                                dY=_repeat_lanes(dY, R),
-                               dY_noise=_repeat_lanes(dY_noise, R))
+                               dY_noise=_repeat_lanes(dY_noise, R),
+                               h_extra=_repeat_lanes(h_extra, R))
     v0 = value(u0.reshape(r * R, P)).reshape(r, R)
     amp_fb = torch.clamp(Y.var(dim=-1, unbiased=False),
                          config.amp_bounds[0] * 10, config.amp_bounds[1] / 10)
@@ -639,7 +650,7 @@ def _fit_components(
             f"n_restarts={R} not divisible by restart_chunk={restart_chunk}")
     res = _fit_lanes(u0, X, Y, config, steps, noise=noise,
                      restart_chunk=restart_chunk, stats=stats, dY=dY,
-                     dY_noise=dY_noise)
+                     dY_noise=dY_noise, h_extra=h_extra)
     stats["n_steps"] = steps
     stats["fit_wall_s"] = time.perf_counter() - t0
     return res
@@ -668,7 +679,8 @@ def fit_gp(
         max_steps=max_steps, restart_chunk=restart_chunk,
         noise=None if data.noise is None else data.noise[None],
         dY=None if data.dY is None else data.dY[None],
-        dY_noise=None if data.dY_noise is None else data.dY_noise[None])
+        dY_noise=None if data.dY_noise is None else data.dY_noise[None],
+        h_extra=None if data.h_extra is None else data.h_extra[None])
     return FitResult(
         params=GPParams(*(a[0] for a in res.params)),
         log_likelihood=res.log_likelihood[0],

@@ -45,8 +45,13 @@ class GPData(NamedTuple):
     vector, rows in (point, dim) row-major order after the N values
     (`kernels.gram_joint`), and needs a twice-differentiable kernel
     (power_exponential alpha=2, matern52[_ard]). dY_noise (*B, N, d): known
-    gradient-noise variances. h_extra keeps the JAX field layout; it is not
-    yet ported and is rejected."""
+    gradient-noise variances. h_extra (*B, N, q), optional: extra GLS basis
+    columns appended after the polynomial basis (fixed data, not
+    theta-dependent, so the closed-form LML backward's GLS envelope stays
+    exact); their query-side values go to predict as hs_extra. The
+    multi-fidelity levels carry the lower level's values there, so the last
+    GLS coefficient is the AR(1) scale rho. h_extra and dY cannot be
+    combined."""
 
     X: torch.Tensor
     y: torch.Tensor
@@ -65,11 +70,6 @@ class GPPosteriorState(NamedTuple):
     LA: torch.Tensor  # (*B, p, p) lower Cholesky of A = H^T C^-1 H
     Linv_H: torch.Tensor  # (*B, N, p) = L^-1 H
     ok: torch.Tensor  # (*B,) bool; factorization succeeded
-
-
-def _reject_unported(data: GPData) -> None:
-    if data.h_extra is not None:
-        raise NotImplementedError("GPData.h_extra is not yet ported")
 
 
 def regression_basis(X: torch.Tensor, order: int) -> torch.Tensor:
@@ -93,11 +93,28 @@ def regression_basis_grad(X: torch.Tensor, order: int) -> torch.Tensor:
     return G.reshape(X.shape[:-2] + (n * d, 1 + order * d))
 
 
+def _with_extra(H: torch.Tensor, extra: Optional[torch.Tensor]) -> torch.Tensor:
+    """H with the extra columns appended last, over the batch of both."""
+    if extra is None:
+        return H
+    batch = np.broadcast_shapes(H.shape[:-2], extra.shape[:-2])
+    return torch.cat([H.expand(batch + H.shape[-2:]),
+                      extra.to(H.dtype).expand(batch + extra.shape[-2:])],
+                     dim=-1)
+
+
 def training_basis(data: GPData, config: GPConfig) -> torch.Tensor:
-    """H for training; with gradient observations the derivative rows
-    dh/dx follow the value rows, in the joint layout."""
-    _reject_unported(data)
+    """H for training: the polynomial basis, then the h_extra columns; with
+    gradient observations the derivative rows dh/dx follow the value rows,
+    in the joint layout."""
     H = regression_basis(data.X, config.regression_order)
+    if data.h_extra is not None:
+        if data.dY is not None:
+            raise ValueError(
+                "h_extra and dY cannot be combined: the extra regression "
+                "columns have no derivative counterpart"
+            )
+        H = _with_extra(H, data.h_extra)
     if data.dY is not None:
         H = torch.cat(
             [H, regression_basis_grad(data.X, config.regression_order)],
@@ -107,7 +124,6 @@ def training_basis(data: GPData, config: GPConfig) -> torch.Tensor:
 
 def training_targets(data: GPData) -> torch.Tensor:
     """y, extended by the row-major flattened gradients when dY is given."""
-    _reject_unported(data)
     if data.dY is None:
         return data.y
     dY = data.dY.reshape(data.dY.shape[:-2] + (-1,))
@@ -120,7 +136,6 @@ def training_gram(data: GPData, params: GPParams, config: GPConfig) -> torch.Ten
     """C(theta) over the training rows: the Gram, or the joint value +
     gradient Gram when data carries dY; known noise variances land on the
     diagonal. The closed-form LML backward is the VJP of this function."""
-    _reject_unported(data)
     if data.dY is not None:
         return kernels.gram_joint(data.X, params, config, noise=data.noise,
                                   grad_noise=data.dY_noise)
@@ -139,9 +154,10 @@ def _train_rows(data: GPData) -> int:
 def query_basis(
     Xs: torch.Tensor, config: GPConfig, hs_extra: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
-    if hs_extra is not None:
-        raise NotImplementedError("hs_extra is not yet ported")
-    return regression_basis(Xs, config.regression_order)
+    """H(x*) for queries: the polynomial basis, then the caller's hs_extra
+    columns (*B, m, q) (the training h_extra's width)."""
+    return _with_extra(regression_basis(Xs, config.regression_order),
+                       hs_extra)
 
 
 def _cholesky(C: torch.Tensor, config: GPConfig) -> torch.Tensor:
@@ -423,13 +439,21 @@ def precompute_fast_predictor(
         precompute_predictor(params, data, config))
 
 
-def _chunked(core, Xs: torch.Tensor, chunk, dim: int = -1):
-    """core(Xs) -> (mean, var) over sequential query chunks of Xs, the
-    outputs joined on their query axis `dim`."""
+def _chunked(core, Xs: torch.Tensor, chunk, dim: int = -1, extra=None):
+    """core(Xs) -> (mean, var) over sequential query chunks of Xs (and of
+    the rows of `extra`, passed as core's second argument when given), the
+    outputs joined on their query axis `dim`. The last chunk is short (the
+    JAX package pads it with the first queries and drops their answers:
+    the same values)."""
     m = Xs.shape[-2]
+
+    def part(i, j):
+        q = Xs[..., i:j, :]
+        return core(q) if extra is None else core(q, extra[..., i:j, :])
+
     if chunk is None or m <= chunk:
-        return core(Xs)
-    parts = [core(Xs[..., i:i + chunk, :]) for i in range(0, m, chunk)]
+        return part(0, m)
+    parts = [part(i, i + chunk) for i in range(0, m, chunk)]
     return tuple(torch.cat([p[k] for p in parts], dim=dim) for k in (0, 1))
 
 
@@ -515,13 +539,19 @@ def predict_from_precomputed(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Posterior mean and variance at Xs (m, d) -> ((*B, m), (*B, m)),
     in sequential query chunks when `config.predict_query_chunk` (or the
-    auto policy) asks for them."""
-    if hs_extra is not None:
-        raise NotImplementedError("hs_extra is not yet ported")
+    auto policy) asks for them. hs_extra (*B, m, q): the query-side values
+    of the h_extra columns, given exactly when the data carries h_extra."""
+    if (data.h_extra is None) != (hs_extra is None):
+        raise ValueError(
+            "predict: hs_extra must be given exactly when the training "
+            "data carried h_extra columns"
+        )
     chunk = _auto_query_chunk(_train_rows(data), Xs.shape[-2],
                               config.predict_query_chunk)
     return _chunked(
-        lambda q: _predict_core(state, params, data, q, config), Xs, chunk)
+        lambda q, h=None: _predict_core(state, params, data, q, config,
+                                        hs_extra=h),
+        Xs, chunk, extra=hs_extra)
 
 
 def _predict_core(
@@ -530,14 +560,14 @@ def _predict_core(
     data: GPData,
     Xs: torch.Tensor,
     config: GPConfig,
+    hs_extra: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    _reject_unported(data)
     if data.dY is not None:
         # joint rows (values, then gradients) against the query values
         Ks = kernels.joint_cross(data.X, Xs, params, config, grad_rows=True)
     else:
         Ks = kernels.cross_covariance(data.X, Xs, params, config)  # (*B, N, m)
-    Hs = query_basis(Xs, config)  # (m, p)
+    Hs = query_basis(Xs, config, hs_extra)  # (*B, m, p)
     mean = (Hs @ state.beta[..., None])[..., 0] + (
         Ks.mT @ state.alpha[..., None]
     )[..., 0]

@@ -404,19 +404,17 @@ class IterativeInfo(NamedTuple):
     cg_iters: int
 
 
-def _reject_unported(data: GPData, mesh) -> None:
+def _reject_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "a device mesh (the row-sharded multi-device matvec) is not "
             "ported: the port runs on one device")
-    if data.h_extra is not None:
-        raise NotImplementedError("GPData.h_extra is not yet ported")
 
 
 def _matvec_for(params, data, config, mesh, row_chunk: int = 2048):
     """The training matvec closure, row-chunked on one device. row_chunk
     bounds the kernel tile at (row_chunk, n)."""
-    _reject_unported(data, mesh)
+    _reject_mesh(mesh)
     return lambda V: gram_matvec(data.X, params, config, V,
                                  row_chunk=row_chunk, noise=data.noise)
 
@@ -434,11 +432,15 @@ def _training_operator(params, data, config, rank, mesh=None, row_chunk=2048):
     """Preconditioner, matvec, regression basis and the [y | H] RHS block:
     the training-solve operator, shared by the LML forward and the serving
     precompute so that the two always solve the same system."""
-    _reject_unported(data, mesh)
+    _reject_mesh(mesh)
     Lk = pivoted_cholesky(data.X, params, config, rank)
     pre = make_preconditioner(Lk, _ridge(params, data, config))
     mv = _matvec_for(params, data, config, mesh, row_chunk)
     H = regression_basis(data.X, config.regression_order)
+    if data.h_extra is not None:
+        # extra GLS columns (the multi-fidelity rho column), training side
+        # only: predict_iterative_from_state rejects h_extra data
+        H = torch.cat([H, data.h_extra.to(H.dtype)], dim=1)
     B = torch.cat([data.y[:, None], H], dim=1)  # (n, 1 + p)
     return pre, mv, H, B, Lk
 
@@ -636,7 +638,7 @@ def lml_iterative(
             "(dY): the joint value+gradient matvec is not implemented — "
             "use the dense path (models/gp.py), which covers GEK sizes"
         )
-    _reject_unported(data, mesh)
+    _reject_mesh(mesh)
     kw = dict(seed=seed, rank=rank, probes=probes,
               lanczos_iters=lanczos_iters, cg_tol=cg_tol,
               cg_max_iters=cg_max_iters, logdet_method=logdet_method,
@@ -683,7 +685,7 @@ def fit_gp_iterative(
         raise ValueError(
             "the matrix-free path does not support gradient-enhanced data "
             "(dY); use the dense fit (models/fit.py)")
-    _reject_unported(data, mesh)
+    _reject_mesh(mesh)
 
     def lml_fn(params, d, cfg):
         return lml_iterative(
@@ -753,7 +755,6 @@ def precompute_iterative_predictor(
     )
 
 
-@torch.no_grad()
 def predict_iterative_from_state(
     state: IterativePosteriorState,
     data: GPData,
@@ -779,7 +780,20 @@ def predict_iterative_from_state(
     pivoted-Cholesky residual is PSD, so the reported variance is a lower
     bound that tightens with the rank (exact at rank = n); if the
     conditioning floor raised the ridge, it is an approximation, not a
-    bound. The mean and the GLS correction are exact either way."""
+    bound. The mean and the GLS correction are exact either way.
+
+    The "precond" route is differentiable in Xs by torch autograd (HMC over
+    a matrix-free emulator); "exact" runs without autograd (its PCG loop,
+    like the JAX package's while loop, has no reverse pass)."""
+    with torch.set_grad_enabled(torch.is_grad_enabled()
+                                and variance_method == "precond"):
+        return _predict_from_state(state, data, Xs, query_chunk,
+                                   with_variance, variance_method, row_chunk,
+                                   variance_rhs)
+
+
+def _predict_from_state(state, data, Xs, query_chunk, with_variance,
+                        variance_method, row_chunk, variance_rhs):
     params, config = state.params, state.config
     if data.h_extra is not None:
         raise ValueError(

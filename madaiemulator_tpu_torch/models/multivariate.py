@@ -224,14 +224,19 @@ def project_gradient_noise(dY_noise, pca: PCAState, scaling: DesignScaling,
 def _component_batch(X: torch.Tensor, Z: torch.Tensor,
                      noise_pc: Optional[torch.Tensor] = None,
                      dZ: Optional[torch.Tensor] = None,
-                     dZ_noise: Optional[torch.Tensor] = None) -> GPData:
+                     dZ_noise: Optional[torch.Tensor] = None,
+                     H_pc: Optional[torch.Tensor] = None) -> GPData:
     """The r component GPs as one batched GPData: y (r, N) holds each
     component's scores, noise (r, N) its PC-space noise variances, dY and
-    dY_noise (r, N, d) its PC-space gradient blocks."""
+    dY_noise (r, N, d) its PC-space gradient blocks. H_pc (N, r), when
+    given, is a per-component extra GLS column (the multivariate
+    multi-fidelity lower-level mean): component i trains with h_extra =
+    H_pc[:, i:i+1]."""
     def comp(a):
         return None if a is None else a.permute(2, 0, 1)
 
     return GPData(X=X, y=Z.mT, noise=None if noise_pc is None else noise_pc.mT,
+                  h_extra=None if H_pc is None else H_pc.mT[:, :, None],
                   dY=comp(dZ), dY_noise=comp(dZ_noise))
 
 
@@ -240,17 +245,19 @@ def _vmapped_fit(
     config: GPConfig, restart_chunk: Optional[int] = None,
     noise_pc: Optional[torch.Tensor] = None,
     dZ: Optional[torch.Tensor] = None,
-    dZ_noise: Optional[torch.Tensor] = None, **fit_kwargs,
+    dZ_noise: Optional[torch.Tensor] = None,
+    H_pc: Optional[torch.Tensor] = None, **fit_kwargs,
 ) -> _fit.FitResult:
     """`fit_gp` of every component at once (the JAX package vmaps it over
     the component axis): the (r x R) lanes step in one lock-step LBFGS.
     Each component's restarts come from one `sample_restarts` call, in
     component order. FitResult fields carry the component axis in front."""
-    data = _component_batch(X, Z, noise_pc, dZ, dZ_noise)
+    data = _component_batch(X, Z, noise_pc, dZ, dZ_noise, H_pc)
     return _fit._fit_components(generator, X, data.y, config,
                                 restart_chunk=restart_chunk,
                                 noise=data.noise, dY=data.dY,
-                                dY_noise=data.dY_noise, **fit_kwargs)
+                                dY_noise=data.dY_noise,
+                                h_extra=data.h_extra, **fit_kwargs)
 
 
 def _vmapped_states(
@@ -258,12 +265,13 @@ def _vmapped_states(
     noise_pc: Optional[torch.Tensor] = None,
     dZ: Optional[torch.Tensor] = None,
     dZ_noise: Optional[torch.Tensor] = None,
+    H_pc: Optional[torch.Tensor] = None,
 ) -> GPPosteriorState:
     """Per-component serve states as ONE batched build over (r, N, N): Gram,
     factorization and GLS solves for every component at once, with the
     per-component jitter ladder of `precompute_predictor`."""
     return precompute_predictor(
-        params, _component_batch(X, Z, noise_pc, dZ, dZ_noise), config)
+        params, _component_batch(X, Z, noise_pc, dZ, dZ_noise, H_pc), config)
 
 
 def _predict_components(

@@ -47,6 +47,7 @@ from madaiemulator_tpu_torch.models import fit as _fit
 from madaiemulator_tpu_torch.models.design import _greedy_maximin
 from madaiemulator_tpu_torch.models.gp import (
     GPData,
+    query_basis,
     regression_basis,
     regression_basis_grad,
 )
@@ -157,8 +158,6 @@ def _sgpr_system(
     Z: torch.Tensor,
     row_chunk: Optional[int] = None,
 ) -> _SGPRSystem:
-    if data.h_extra is not None:
-        raise NotImplementedError("GPData.h_extra is not yet ported")
     X, y = data.X, data.y
     n, d = X.shape[-2:]
     dtype = y.dtype
@@ -166,6 +165,11 @@ def _sgpr_system(
     nugget = torch.exp(params.log_nugget)
     m = Z.shape[-2]
     has_grad = data.dY is not None
+    if has_grad and data.h_extra is not None:
+        raise ValueError(
+            "h_extra and dY cannot be combined (same rule as the dense "
+            "path: the extra regression columns have no derivative rows)"
+        )
     Kmm = kernels.cross_covariance(Z, Z, params, config)  # (*B, m, m)
     Kmm = 0.5 * (Kmm + Kmm.mT) + (
         _mm_jitter(dtype) * amp)[..., None, None] * _eye(m, Kmm)
@@ -199,10 +203,10 @@ def _sgpr_system(
                            / Dg).sum((-2, -1))
         dY = data.dY.to(dtype)
 
-    def block_summaries(Xb, yb, rsDb, dYb=None, rsDgb=None):
+    def block_summaries(Xb, yb, rsDb, hb=None, dYb=None, rsDgb=None):
         if dYb is None:
             Kb = kernels.cross_covariance(Z, Xb, params, config)  # (*B, m, cb)
-            Hb = regression_basis(Xb, config.regression_order)
+            Hb = query_basis(Xb, config, hb)  # + the h_extra columns
             rsJ, yJ = rsDb, yb
         else:
             cb = Xb.shape[-2]
@@ -233,7 +237,7 @@ def _sgpr_system(
         )
 
     if row_chunk is None or n <= row_chunk:
-        sums = block_summaries(X, y, rsD, dY, rsDg)
+        sums = block_summaries(X, y, rsD, data.h_extra, dY, rsDg)
     else:
         # pad with rsD = 0 rows: their whitened operands vanish, so every
         # summary is unchanged (the D-scalars above used the real D)
@@ -247,6 +251,7 @@ def _sgpr_system(
             return torch.cat([t, t.new_zeros(shape)], dim=axis)
 
         Xp, yp, rp = padded(X, -2), padded(y, -1), padded(rsD, -1)
+        hp = None if data.h_extra is None else padded(data.h_extra, -2)
         dYp = None if dY is None else padded(dY, -2)
         rgp = None if rsDg is None else padded(rsDg, -2)
         # each chunk's summaries under torch.utils.checkpoint: the backward
@@ -256,7 +261,8 @@ def _sgpr_system(
         sums = None
         for s in range(0, n + pad, row_chunk):
             blk = [Xp[..., s:s + row_chunk, :], yp[..., s:s + row_chunk],
-                   rp[..., s:s + row_chunk]]
+                   rp[..., s:s + row_chunk],
+                   None if hp is None else hp[..., s:s + row_chunk, :]]
             if dYp is not None:
                 blk += [dYp[..., s:s + row_chunk, :],
                         rgp[..., s:s + row_chunk, :]]
@@ -345,10 +351,10 @@ def predict_sgpr(
     (*B, s)), batched over the state's and params' leading axes. O(s m)
     work per query batch: the training points are folded into the state.
     Variance = the Titsias posterior variance + the GLS trend-estimation
-    correction (the dense `predict_from_precomputed`'s structure)."""
-    if hs_extra is not None:
-        raise NotImplementedError("hs_extra is not yet ported")
-    Hs = regression_basis(Xs, config.regression_order)  # (s, p)
+    correction (the dense `predict_from_precomputed`'s structure).
+    hs_extra (*B, s, q): the query-side values of the training h_extra
+    columns."""
+    Hs = query_basis(Xs, config, hs_extra)  # (*B, s, p)
     Ksm = kernels.cross_covariance(state.Z, Xs, params, config)  # (*B, m, s)
     v1 = linalg.solve_lower(state.Lm, Ksm)
     v2 = linalg.solve_lower(state.LB, v1)
@@ -461,7 +467,7 @@ def fit_sgpr(
         bu, bv = _fit.fit_one_start(
             _fit._unflatten(u0[g:g + rc]), data.X, data.y, config, steps,
             noise=data.noise, stats=stats, dY=data.dY,
-            dY_noise=data.dY_noise, lml_fn=lml_fn)
+            dY_noise=data.dY_noise, lml_fn=lml_fn, h_extra=data.h_extra)
         best_u.append(_fit._flatten_t(bu))
         best_neg.append(bv)
     best_u = torch.cat(best_u)

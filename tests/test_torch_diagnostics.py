@@ -368,16 +368,35 @@ def _summary(text):
 def test_validate_cli_matches_jax(branch, snap, sparse_snap, jax_runs,
                                   capsys, monkeypatch, tmp_path):
     """The port's `validate` prints the JAX CLI's summary (and writes its
-    table) on the same snapshot; a multi-fidelity snapshot exits 2 with
-    one error line (not yet ported)."""
+    table) on the same snapshot; on a multi-fidelity snapshot, its
+    per-level blocks."""
     if branch == "multifidelity":
-        p = tmp_path / "mf.txt"
-        p.write_text("MADAIEMULATOR_TPU_SNAPSHOT_MF 1\n")
-        assert tcli.main(["validate", str(p), "--device", "cpu"]) == 2
-        cap = capsys.readouterr()
-        err = cap.err.splitlines()
-        assert cap.out == "" and len(err) == 1
-        assert err[0].startswith("error: ") and "not yet ported" in err[0]
+        from madaiemulator_tpu_torch.models import multifidelity as tmfm
+
+        rng = np.random.default_rng(13)
+        X0, X1 = rng.uniform(size=(14, D)), rng.uniform(size=(7, D))
+        f0 = np.sin(3 * X0[:, 0]) + X0[:, 1] + 0.02 * rng.standard_normal(14)
+        f1 = np.sin(3 * X1[:, 0]) * 1.3 + 0.02 * rng.standard_normal(7)
+        emu = tmfm.fit_multifidelity(
+            torch.Generator().manual_seed(0), [torch.tensor(X0),
+                                               torch.tensor(X1)],
+            [torch.tensor(f0), torch.tensor(f1)],
+            tcfg.GPConfig(nparams=D, n_restarts=2, max_opt_steps=5))
+        p = str(tmp_path / "mf.txt")
+        tsnap.write_snapshot_auto(p, emu)
+        outs = []
+        for main, extra in ((jcli.main, []), (tcli.main, ["--device",
+                                                         "cpu"])):
+            assert main(["validate", p] + extra) == 0
+            outs.append(capsys.readouterr().out.splitlines())
+        assert len(outs[1]) == len(outs[0]) == 2 * 9
+        for lt, lj in zip(*outs[::-1]):
+            if lj.startswith("#"):
+                assert lt == lj
+            else:
+                assert lt.split()[0] == lj.split()[0]
+                _close(float(lt.split()[1]), float(lj.split()[1]),
+                       rtol=RTOL_ITER)
         return
     _inject_permutation(monkeypatch, 0)
     out, table = _validate(tcli.main, branch, snap, sparse_snap,

@@ -401,9 +401,14 @@ def test_cli_print_thetas_and_convert_match(cli_states, capsys,
 
 
 def _mf_file(tmp_path):
-    p = tmp_path / "mf.txt"
-    p.write_text("MULTIFIDELITY 2\n")
-    return str(p)
+    """A two-level scalar MULTIFIDELITY model file (level 1 nested)."""
+    p = str(tmp_path / "mf.txt")
+    x0 = np.linspace(0.0, 1.0, 9)[:, None]
+    x1 = x0[::2]
+    y0 = np.sin(6 * x0[:, 0])
+    tmf.write_multifidelity_model_file(
+        p, [x0, x1], [y0, 1.5 * y0[::2] + 0.2 * x1[:, 0]], [y0[::2]])
+    return p
 
 
 def _sgpr_state(tmp_path):
@@ -415,19 +420,18 @@ def _sgpr_state(tmp_path):
     return p
 
 
-def _mf_npz_state(tmp_path):
-    """A multi-fidelity .npz snapshot (the grammar the port does not read
-    yet)."""
-    p = str(tmp_path / "mf.npz")
-    np.savez(p, magic=np.array(["MADAIEMULATOR_TPU_SNAPSHOT_MF"]),
-             version=np.array([1]))
+def _mf_state(tmp_path, name="mf_state.txt"):
+    """A multi-fidelity snapshot (text, or .npz by extension) of
+    `_mf_file`, by the port's CLI."""
+    p = str(tmp_path / name)
+    assert tcli.main(["estimate_thetas", _mf_file(tmp_path), p, "--restarts",
+                      "2", "--steps", "2", "--device", "cpu",
+                      "--quiet"]) == 0
     return p
 
 
-def _mf_state(tmp_path):
-    p = tmp_path / "mf_state.txt"
-    p.write_text("MADAIEMULATOR_TPU_SNAPSHOT_MF 1\n")
-    return str(p)
+def _mf_npz_state(tmp_path):
+    return _mf_state(tmp_path, "mf.npz")
 
 
 UNPORTED = {
@@ -453,10 +457,12 @@ UNPORTED = {
         "8"],
 }
 # the cases whose commands are ported now: each checks that it works (the
-# sparse fit writes a sparse snapshot; print_thetas prints what the JAX CLI
-# prints; convert rewrites the snapshot's bytes)
+# sparse and multi-fidelity fits write their snapshots; print_thetas prints
+# what the JAX CLI prints; convert rewrites the snapshot's bytes, or its
+# .npz key for key as the JAX CLI does)
 PORTED_NOW = ("inducing", "print_thetas_sgpr", "convert_sgpr",
-              "tuning_inducing_opt_steps", "tuning_row_chunk")
+              "tuning_inducing_opt_steps", "tuning_row_chunk",
+              "multifidelity", "npz_state", "convert_to_npz")
 
 
 @pytest.mark.parametrize("what", sorted(UNPORTED))
@@ -471,14 +477,24 @@ def test_unported_exits_2_with_one_line(what, tmp_path, capsys, monkeypatch):
         capsys.readouterr()
         assert tcli.main(argv) == 0
         out = capsys.readouterr().out
+        mf = what in ("multifidelity", "npz_state", "convert_to_npz")
         if argv[0] == "estimate_thetas":
             assert (tmp_path / "s.txt").read_text().startswith(
-                tsnap.MAGIC_SGPR + " 1\n")
+                (tsnap.MAGIC_MF if mf else tsnap.MAGIC_SGPR) + " 1\n")
         elif argv[0] == "print_thetas":
             monkeypatch.setenv("MADAI_COMPILE_CACHE", "off")
             assert jcli.main(argv) == 0
             assert out == capsys.readouterr().out
-            assert out.startswith("# 1 component(s)")
+            assert out.startswith("# 2 fidelity level(s)" if mf
+                                  else "# 1 component(s)")
+        elif mf:
+            monkeypatch.setenv("MADAI_COMPILE_CACHE", "off")
+            assert jcli.main(["convert", argv[1], "j.npz"]) == 0
+            with np.load(tmp_path / "o.npz") as zt, \
+                    np.load(tmp_path / "j.npz") as zj:
+                assert sorted(zt.files) == sorted(zj.files)
+                for k in zj.files:
+                    np.testing.assert_array_equal(zt[k], zj[k])
         else:
             assert ((tmp_path / "o.txt").read_bytes()
                     == pathlib.Path(argv[1]).read_bytes())

@@ -275,13 +275,18 @@ def test_query_chunking_is_exact():
 
 
 def test_unported_data_fields_raise():
-    """h_extra is not yet ported; dY is (tests/test_torch_gradients.py) and
-    on a once-differentiable kernel raises the JAX package's ValueError."""
+    """dY (tests/test_torch_gradients.py) on a once-differentiable kernel
+    raises the JAX package's ValueError. h_extra is ported
+    (tests/test_torch_h_extra.py): its columns follow the polynomial basis,
+    and it cannot be combined with dY."""
     _, ct, _, pt, _, dt = _states("matern32", torch.float64)
     with pytest.raises(ValueError, match="twice differentiable"):
         tgp._factor(dt._replace(dY=dt.X), pt, ct)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tgp.training_basis(dt._replace(h_extra=dt.X), ct)
+    H = tgp.training_basis(dt._replace(h_extra=dt.X), ct)
+    base = tgp.training_basis(dt, ct)
+    assert torch.equal(H, torch.cat([base, dt.X], dim=-1))
+    with pytest.raises(ValueError, match="h_extra and dY"):
+        tgp.training_basis(dt._replace(h_extra=dt.X, dY=dt.X), ct)
 
 
 def test_pad_spd_and_thetas_roundtrip():

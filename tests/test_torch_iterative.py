@@ -332,7 +332,8 @@ def test_lml_iterative_row_chunk_invariant():
 
 def test_lml_iterative_gate_and_rejections():
     """A solve that cannot converge in its budget is walled off at -inf;
-    gradient data, extra basis columns and a device mesh are refused."""
+    gradient data and a device mesh are refused; extra GLS basis columns
+    (h_extra, the multi-fidelity column) train as in the dense LML."""
     X, y, nz, th = _problem(24)
     ct, dt, pt = _torch(X, y, nz, th)
     ll = ti.lml_iterative(pt, dt, ct, rank=2, probes=4, cg_tol=1e-14,
@@ -348,8 +349,9 @@ def test_lml_iterative_gate_and_rejections():
             dY=torch.zeros(24, 2)), ct)
     with pytest.raises(NotImplementedError, match="mesh"):
         ti.lml_iterative(pt, dt, ct, mesh=object())
-    with pytest.raises(NotImplementedError, match="h_extra"):
-        ti.lml_iterative(pt, dt._replace(h_extra=torch.ones(24, 1)), ct)
+    dh = dt._replace(h_extra=torch.cos(3 * dt.X[:, :1]))
+    _close(ti.lml_iterative(pt, dh, ct, rank=24, probes=24, **EXACT),
+           tgp.log_marginal_likelihood(pt, dh, ct), rtol=1e-8)
     with pytest.raises(ValueError, match="logdet_method"):
         ti.lml_iterative(pt, dt, ct, logdet_method="bogus")
 

@@ -19,6 +19,7 @@ from madaiemulator_tpu_torch import cli as tcli
 from madaiemulator_tpu_torch.io import snapshot as tsnap
 from madaiemulator_tpu_torch.models import multivariate as tmv
 from madaiemulator_tpu_torch.utils import config as tcfg
+from torch_mf_fixture import mf_emulator
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "tests" / "golden"
@@ -110,11 +111,25 @@ def test_noise_snapshot_v2_cross_reads(tmp_path):
     ("MADAIEMULATOR_TPU_SNAPSHOT_SGPR 1\n", "sparse"),
 ])
 def test_unported_snapshots_raise(tmp_path, head, what):
-    """The multi-fidelity grammar is not read yet. The sparse one is (its
-    case checks it): read_snapshot_auto returns the sparse emulator, which
-    serves what was written, and the dense reader points to it."""
+    """Both other grammars are read now (each case checks its own):
+    read_snapshot_auto returns the sparse or the multi-fidelity emulator,
+    which serves what was written, and the dense reader points to the
+    grammar's own reader."""
     p = tmp_path / "s.txt"
-    if what == "sparse":
+    if what == "multi-fidelity":
+        from madaiemulator_tpu_torch.models import multifidelity as tmfm
+
+        emu = mf_emulator(multivariate=False)
+        tsnap.write_snapshot_auto(str(p), emu)
+        assert p.read_text().startswith(head)
+        got, _, _ = tsnap.read_snapshot_auto(str(p), device=CPU)
+        q = np.random.default_rng(6).uniform(1.0, 3.0, size=(4, 2))
+        for a, b in zip(tmfm.predict_multifidelity(got, q),
+                        tmfm.predict_multifidelity(emu, q)):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12)
+        with pytest.raises(ValueError, match="read_snapshot_multifidelity"):
+            tsnap.read_snapshot(str(p), device=CPU)
+    elif what == "sparse":
         from madaiemulator_tpu_torch.models import sparse as ts
 
         rng = np.random.default_rng(6)
@@ -265,11 +280,13 @@ def test_cli_errors_exit_2(monkeypatch, capsys, tmp_path):
         assert rc == 2
         assert out.err.strip() == "error: CUDA device not available"
         assert out.out == ""
+    # a multi-fidelity snapshot serves dense only (as in the JAX CLI)
     mf = tmp_path / "mf.txt"
-    mf.write_text("MADAIEMULATOR_TPU_SNAPSHOT_MF 1\n")
+    tsnap.write_snapshot_auto(str(mf), mf_emulator(multivariate=False))
     rc, out = _serve_in_process(monkeypatch, capsys, "",
-                                [str(mf), "--device", "cpu"])
-    assert rc == 2 and "not yet ported" in out.err
+                                [str(mf), "--device", "cpu",
+                                 "--serve_method", "fast"])
+    assert rc == 2 and "serve dense only" in out.err
 
 
 def test_port_imports_no_jax():
@@ -281,6 +298,9 @@ def test_port_imports_no_jax():
         "import madaiemulator_tpu_torch.models.sparse\n"
         "import madaiemulator_tpu_torch.models.diagnostics\n"
         "import madaiemulator_tpu_torch.models.design\n"
+        "import madaiemulator_tpu_torch.models.multifidelity\n"
+        "import madaiemulator_tpu_torch.models.calibrate\n"
+        "import madaiemulator_tpu_torch.io.experiment\n"
         "import madaiemulator_tpu_torch.parallel.ensemble\n"
         "import madaiemulator_tpu_torch.ops.hopper.build\n"
         "import madaiemulator_tpu_torch.ops.hopper.cholesky\n"

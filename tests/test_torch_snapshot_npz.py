@@ -25,6 +25,7 @@ from madaiemulator_tpu_torch.io import snapshot as tsnap
 from madaiemulator_tpu_torch.models import multivariate as tmv
 from madaiemulator_tpu_torch.models import sparse as ts
 from madaiemulator_tpu_torch.utils import config as tcfg
+from torch_mf_fixture import mf_emulator
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MV = str(ROOT / "tests" / "golden" / "multivar_pca" / "state.txt")
@@ -190,15 +191,15 @@ def _sparse_emulator():
 
 
 def _npz_grammar(tmp_path, what):
-    """An .npz snapshot of another grammar than the dense one: a stub of
-    the multi-fidelity grammar (not read yet), or a real sparse one."""
+    """An .npz snapshot of another grammar than the dense one: a real
+    multi-fidelity (version 2) or sparse one."""
     p = str(tmp_path / "state.npz")
     if what == "sparse":
         tsnap.write_snapshot_sparse_npz(p, _sparse_emulator(), ["a", "b"],
                                         ["o0", "o1", "o2"])
         return p
-    np.savez(p, magic=np.array(["MADAIEMULATOR_TPU_SNAPSHOT_MF"]),
-             version=np.array([1]))
+    tsnap.write_snapshot_multifidelity_mv_npz(
+        p, mf_emulator(multivariate=True), ["a", "b"], ["o0", "o1", "o2"])
     return p
 
 
@@ -207,38 +208,29 @@ def _npz_grammar(tmp_path, what):
 @pytest.mark.parametrize("what", ["multi-fidelity", "sparse"])
 def test_unported_npz_grammars_exit_2(tmp_path, capsys, monkeypatch, command,
                                       what):
-    """Multi-fidelity .npz snapshots exit 2 with one line on every command;
-    sparse ones (ported) run: print_thetas prints, interactive_mode serves,
-    convert writes the sparse text grammar. The dense .npz reader refuses
-    both grammars by name."""
+    """Both other grammars' .npz snapshots (ported) run on every command:
+    print_thetas prints, interactive_mode serves, convert writes the
+    grammar's text form. The dense .npz reader refuses both grammars by
+    name."""
     state = _npz_grammar(tmp_path, what)
-    if what == "sparse":
-        if command == "interactive_mode":
-            rc, cap = _serve(monkeypatch, capsys, "1.5 2.5\n",
-                             [state, "--device", "cpu"])
-            assert len(cap.out.splitlines()) == 1 + 2 + 1 + 6 + 6
-        else:
-            argv = [state] + ([str(tmp_path / "o.txt")]
-                              if command == "convert" else [])
-            rc = tcli.main([command] + argv)
-            cap = capsys.readouterr()
-        assert rc == 0, cap.err
-        if command == "print_thetas":
-            assert cap.out.startswith("# 3 component(s)")
-        if command == "convert":
-            assert (tmp_path / "o.txt").read_text().startswith(
-                tsnap.MAGIC_SGPR + " 1\n")
+    if command == "interactive_mode":
+        rc, cap = _serve(monkeypatch, capsys, "1.5 2.5\n",
+                         [state, "--device", "cpu"])
+        assert len(cap.out.splitlines()) == 1 + 2 + 1 + 6 + 6
     else:
-        argv = {"print_thetas": [state],
-                "interactive_mode": [state, "--device", "cpu"],
-                "convert": [state, str(tmp_path / "o.txt")]}[command]
-        assert tcli.main([command] + argv) == 2
+        argv = [state] + ([str(tmp_path / "o.txt")]
+                          if command == "convert" else [])
+        rc = tcli.main([command] + argv)
         cap = capsys.readouterr()
-        err = cap.err.splitlines()
-        assert len(err) == 1 and err[0].startswith("error: "), err
-        assert what in err[0] and "not yet ported" in err[0]
-        assert cap.out == ""
-        assert not (tmp_path / "o.txt").exists()
+    assert rc == 0, cap.err
+    if command == "print_thetas":
+        assert cap.out.startswith("# 3 component(s)" if what == "sparse"
+                                  else "# 2 fidelity level(s) x 3 "
+                                  "component(s)")
+    if command == "convert":
+        assert (tmp_path / "o.txt").read_text().startswith(
+            tsnap.MAGIC_SGPR + " 1\n" if what == "sparse"
+            else tsnap.MAGIC_MF + " 2\n")
     with pytest.raises(ValueError, match=what):
         tsnap.read_snapshot_npz(state, device=CPU)
 
@@ -348,4 +340,54 @@ def test_port_sparse_snapshot_serves_from_native(native_lib, monkeypatch,
     vals = np.asarray(r.stdout.splitlines()[10:], float).reshape(-1, 6)
     np.testing.assert_allclose(vals[:, :3], mean, rtol=NATIVE_RTOL)
     np.testing.assert_allclose(vals[:, 3:], var, rtol=NATIVE_RTOL,
+                               atol=NATIVE_RTOL * vscale)
+
+
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_port_multifidelity_snapshot_serves_from_native(native_lib,
+                                                        monkeypatch,
+                                                        tmp_path, version):
+    """A multi-fidelity snapshot written by the port (version 1 scalar,
+    version 2 multivariate), served by libmadai_emu.so and madai_query:
+    the port's recursive predictions at the top level to 1e-10."""
+    from madaiemulator_tpu_torch.models import multifidelity as tmfm
+
+    state = str(tmp_path / "mf.txt")
+    if version == "v1":
+        emu, outs = mf_emulator(multivariate=False), ["o0"]
+        tsnap.write_snapshot_auto(state, emu, ["a", "b"], outs)
+    else:
+        emu, outs = mf_emulator(multivariate=True), ["o0", "o1", "o2"]
+        tsnap.write_snapshot_auto(state, emu, ["a", "b"], outs)
+    served, _, _ = tsnap.read_snapshot_auto(state, device=CPU)
+    q = 1.2 + 1.6 * np.random.default_rng(3).uniform(size=(6, 2))
+    if version == "v1":
+        m, v = tmfm.predict_multifidelity(served, q)
+        mean, var = m.numpy()[:, None], v.numpy()[:, None]
+    else:
+        mean, var = (a.numpy() for a in
+                     tmfm.predict_multivariate_multifidelity(served, q))
+    vscale = float(var.max())
+    monkeypatch.setattr(native, "_LIB_PATH", native_lib / "libmadai_emu.so")
+    monkeypatch.setattr(native, "_lib", None)
+    ne = native.NativeEmulator(state)
+    t = len(outs)
+    assert ne.nparams == 2 and ne.noutputs == t
+    for i in range(q.shape[0]):
+        mc, vc = ne.query(q[i])
+        np.testing.assert_allclose(mc, mean[i], rtol=NATIVE_RTOL)
+        np.testing.assert_allclose(vc, var[i], rtol=NATIVE_RTOL,
+                                   atol=NATIVE_RTOL * vscale)
+    stdin = "\n".join(" ".join(f"{v:.17g}" for v in p) for p in q) + "\n"
+    r = subprocess.run([str(native_lib / "madai_query"), state], input=stdin,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.splitlines()
+    head = 1 + 2 + 1 + 2 * t
+    assert lines[:head] == (["2", "a", "b", str(2 * t)]
+                            + [f"mean_{s}" for s in outs]
+                            + [f"variance_{s}" for s in outs])
+    vals = np.asarray(lines[head:], float).reshape(q.shape[0], 2 * t)
+    np.testing.assert_allclose(vals[:, :t], mean, rtol=NATIVE_RTOL)
+    np.testing.assert_allclose(vals[:, t:], var, rtol=NATIVE_RTOL,
                                atol=NATIVE_RTOL * vscale)
