@@ -47,7 +47,12 @@ It imports no jax. Phases, in order; any failure exits non-zero:
                serving 8,192 queries, each against float64; the fast
                (GEMM-only) serve of the same queries; each tier's factor,
                value+grad and Cinv GEMM at a theta where "auto" picks
-               "high"; times, the value+grad memory peak and profiles.
+               "high"; the blocked route (cholesky_method="blocked",
+               right-looking, library math) at "highest" under the K3
+               route's factor gates and at "high" under the tier gate, one
+               LML value+grad on it against float64, its factor timed
+               beside the K3 route and cholesky_ex; times, the value+grad
+               memory peak and profiles.
   7. config3 — BASELINE config 3 at full width (N=512, d=6, t=15, PCA 0.99
                -> r components, regression_order=1, power-exponential
                alpha=2, 4 restarts x 40 LBFGS steps; data as
@@ -87,7 +92,9 @@ It imports no jax. Phases, in order; any failure exits non-zero:
  10. iterative — the matrix-free GP (models/iterative.py) at
                bench/capability_64k.py's full width: N=65,536 in d=8,
                float32, y = a smooth truth + 0.05 noise, rank 64, 8 probes,
-               mBCG, cg_tol 1e-4, 200 iterations, row chunk 2,048. K1 at
+               mBCG, cg_tol 1e-4, 200 iterations (the fit, the CLI fit
+               and the value+grad's profile cut to 50), row chunk 2,048.
+               K1 at
                the path's shapes ((1,2048,65536) tiles, (1,65536,1) pivot
                columns, (1,65536,256) serve chunks) against its plain
                version, timed beside the library composite; the main path
@@ -154,6 +161,25 @@ It imports no jax. Phases, in order; any failure exits non-zero:
                float32 log-posterior against float64 at the same walker
                positions; K1 on one half-move's operands for each emulator
                kind; the CLI's calibrate with an experiment file.
+ 15. design  — sequential design and Sobol sensitivity
+               (models/design.py, models/sensitivity.py) on phase 7's
+               snapshot at float32: active_variance_design (pool 4,096,
+               8 picks), nroy_wave_design against phase 14's experiment
+               file (pool 8,192, threshold 3), sobol_indices (n=4,096:
+               32,768 evaluations) and main_effects (33 x 2,048 x 6:
+               405,504 evaluations); the acquisition weights, picks,
+               viable fraction and Sobol indices against a float64
+               emulator on the same pool and draws; the Sobol indices
+               against the simulator's own within their Monte Carlo error,
+               Ishigami against its closed forms, every NROY pick's float64
+               implausibility; active_variance_design on phase 13's
+               multi-fidelity emulator, phase 11's sparse snapshot and
+               phase 10's matrix-free emulator on its serving cache, and
+               sobol_indices on the first two; K1 on each path's operands;
+               the CLI's design (both methods, and --matrix_free on phase
+               10's CLI snapshot) and sensitivity --main_effects against
+               the in-process calls; compat's 1-D sin at float64 and
+               float32; times by utils.profiling.timed and profiles.
 
 The launch counters are set to 0 just before each main path (phase 5's
 serve, phase 6's value+grad -> fit -> serve, phase 7's fit_multivariate,
@@ -161,7 +187,8 @@ phase 8's fit_ensemble -> predict_ensemble, and the new paths: phase 5's
 fast serve, phase 6's fast serve and tier runs, phase 9's fit -> serve,
 phase 10's value+grad -> fit -> serve, phase 11's fit -> serve, phase
 12's config 3 / config 4 / matrix-free diagnostics, phase 13's fit ->
-serve and phase 14's emcee chain) and read just after it. Phase 5
+serve, phase 14's emcee chain, phase 6's blocked value+grad and phase 15's
+design and sensitivity calls) and read just after it. Phase 5
 fails if a kernel of its path never launched, and requires K1 = 2 and K2 =
 1 on its fast path; phase 6 requires K3 to launch
 exactly once per diagonal panel of every factorization the path makes, and
@@ -180,7 +207,11 @@ matrix-free path; phase 13 requires K1 = (e0 + 1) + 1 + (e1 + 1) + 2, K2 =
 e1 + 1 and K3 = 4 (e0 + 1) for e0 and e1 objective evaluations of the cheap
 and the expensive level (a state build each, the expensive level's column,
 two serve crosses; 4 panels of the cheap level's Gram); phase 14 requires
-K1 = 2 x steps + 1 and K2 = K3 = 0 for the emcee chain. Before the last line it prints one JSON line with
+K1 = 2 x steps + 1 and K2 = K3 = 0 for the emcee chain; phase 6's blocked
+route K1 = 1 and K2 = K3 = 0; phase 15 K1 = one cross covariance a predict
+(a design pool; a query chunk of Sobol or main effects; one a level on the
+multi-fidelity emulator, one a chunk of 1,024 on the matrix-free one) and
+K2 = K3 = 0. It prints the whole run's wall, then one JSON line with
 each kernel's launches (`launches_by_path`: each path's own count;
 `launches`: config 5's where that path runs the kernel, else config 3's
 fit's, else config 4's, else the serve path's), its error against the plain
@@ -191,7 +222,8 @@ config 3's lane batch, `fit_batch`; K1 and K2 their config-5 shapes,
 `config5`; K3 its gradient path's lane batch, `gradient_batch`; K1 the
 matrix-free path's shapes, `iterative`, and the sparse path's, `sparse`;
 K2 and K3 the diagnostics' operands, `diagnostics`; each kernel the
-operands of phases 13 and 14, `multifidelity` and `calibrate`); the last
+operands of phases 13, 14 and 15, `multifidelity`, `calibrate` and
+`design`); the last
 line is
 {"ok": true,
 "device": ...}.
@@ -342,10 +374,21 @@ G_SERVE_MEAN_TOL, G_SERVE_VAR_TOL = 2.5e-3, 1e-4
 # (the bench runs 2 x 12: cut in depth; 3 steps took 39 s and the phase
 # 259 s, so the steps were cut to 2); I_M queries served with "precond"
 # variances in chunks of I_QC, the first I_M_EXACT also with "exact" ones.
-# The CLI runs config 3's data recipe at N=I_CLI_N.
+# The CLI runs config 3's data recipe at N=I_CLI_N. The fit, the CLI fit
+# and the value+grad's profile stop the likelihood's PCG at I_FIT_ITERS
+# iterations, cut in depth from the I_ITERS that the gated value+grads and
+# the serving solves keep (NVIDIA H100 80GB HBM3, 700 W): at 200 both
+# value+grads ran to the cap (worst solve residual 4.4e-4), the phase took
+# 254.2 s, the fit 27.8 s and the profile 87.1 s of it; the gated
+# float32-vs-float64 comparison needs the 200 (its gradient read 6.9e-6 x
+# max|g64| there, 1.04e-4 at 150 against the 1e-4 gate, and at 50 the
+# solves stayed 0.224 from converged, over `lml_iterative`'s 1e-2
+# feasibility gate: -inf), while the fit at 50 still served at rmse 0.0543
+# (gate 0.075).
 I_N, I_D, I_NOISE = 65536, 8, 0.05
 I_RANK, I_PROBES, I_LANCZOS, I_ROW_CHUNK = 64, 8, 20, 2048
 I_TOL, I_ITERS, I_SERVE_TOL = 1e-4, 200, 1e-5
+I_FIT_ITERS = 50
 I_AMP, I_NUGGET, I_LS = 1.0, 0.1, 0.35
 I_R, I_STEPS = 1, 2
 I_M, I_M_EXACT, I_QC = 2048, 64, 256
@@ -490,6 +533,37 @@ CAL_Z_MAX = 3.0
 # within the posterior by ~delta nats a observable: the gate holds the
 # float32 serve to ~0.1 sd.
 CAL_F32_NATS_PER_OBS = 0.1
+# Design and sensitivity (phase 15) on phase 7's config-3 snapshot at
+# float32: an active-variance batch of DES_NEW from a DES_POOL-point pool,
+# an NROY wave from a DES_NROY_POOL-point pool at implausibility
+# DES_THRESHOLD against phase 14's experiment file, Sobol indices at
+# n=SOB_N ((d + 2) n evaluations) and main effects on a ME_GRID-point grid
+# of ME_N samples (d grid n evaluations), in query chunks of SEN_QC; the
+# other emulator kinds at the same sizes. Each pool of 4,096 or 8,192
+# queries against N=512 stays under the serve's auto query chunk (N m <=
+# 2^26), so each predict is one K1 cross covariance (two on the two-level
+# multi-fidelity emulator; the matrix-free serve takes query chunks of
+# 1,024).
+DES_NEW, DES_POOL, DES_NROY_POOL, DES_THRESHOLD = 8, 4096, 8192, 3.0
+SOB_N, ME_GRID, ME_N, SEN_QC = 4096, 33, 2048, 4096
+# Gates against float64 (the same snapshot's arrays, the float32 jitter
+# floor on both, the same pool and draws), each ~3-4x its reading on an
+# NVIDIA H100 80GB HBM3 (700 W): the acquisition weights over the pool
+# relative to the largest (read 1.5e-2: each weight sums variances that
+# cancel kss - k^T C^-1 k at the fitted nuggets, cond ~1.6e7, where the
+# float32 serve's variance is ~3e-6 of the prior variance off, phase 7; the
+# picks then split only at near-ties, 1.1e-4 apart), and the Sobol indices
+# (absolute; read 4.6e-4).
+DES_WEIGHT_RTOL, SOB_F32_ATOL = 5e-2, 2e-3
+# The emulator's Sobol indices against the simulator's on the same A and B:
+# within 3 Monte Carlo standard errors of the simulator's estimate, plus
+# SOB_TRUTH_ATOL (an input the simulator ignores has zero standard error).
+SOB_TRUTH_ATOL = 1e-3
+# Ishigami (tests/test_sensitivity.py:28-44): n=32,768 at float64, the
+# indices within 0.02 of the closed forms, the variance within 5%.
+ISHIGAMI_N, ISHIGAMI_ATOL = 32768, 0.02
+# compat (tests/test_compat.py:9-20): the served 1-D sin's rmse.
+COMPAT_RMSE = 1e-2
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 rate and FP32 outside the
 # tensor cores (the kernels run full FP32 FFMA; TF32 is off).
 H100_BYTES_PER_S = 3.35e12
@@ -1396,6 +1470,30 @@ def phase_config4(dev, seed: int, smi: str) -> dict:
             times[f"factor_{diag}_{block}"] = host_ms(
                 lambda b=block, g=diag: linalg.left_cholesky(
                     M, block=b, diag=g), iters=2)
+    # the blocked route (cholesky_method="blocked": right-looking, one
+    # trailing GEMM per block column, library math as in the JAX package)
+    # at block 512, under the K3 route's gates at "highest"; "high" is held
+    # at nugget 2 (`_config4_tiers`), its reading here printed
+    for tier in ("highest", "high"):
+        L = linalg.blocked_cholesky_opt(M, block=512, update_precision=tier)
+        r = (M - L @ L.mT).abs().max().item() / mmax
+        del L
+        L = linalg.blocked_cholesky_opt(C, block=512, update_precision=tier)
+        e = (L.double() - L64).abs().max().item() / l64max
+        del L
+        times[f"factor_blocked_{tier}"] = host_ms(
+            lambda t=tier: linalg.blocked_cholesky_opt(
+                M, block=512, update_precision=t), iters=2)
+        what = (f"blocked {tier!r} block 512: SPD 4I+AA^T/N residual "
+                f"{r:.3g}, Gram factor vs float64 {e:.3g} x max|L|")
+        if tier == "highest":
+            check(r < C4_RESIDUAL and e <= C4_GRAM_FACTOR_RTOL,
+                  f"{what} (gates {C4_RESIDUAL}, {C4_GRAM_FACTOR_RTOL})")
+        else:
+            print(f"config4 {what} (not gated at this theta: 'high' is "
+                  f"held at nugget 2)")
+    times["factor_cholesky_ex"] = host_ms(
+        lambda: torch.linalg.cholesky_ex(M), iters=2)
     del M
     # the one-pass TF32 tier ("default") on the same Gram must fail the
     # gate, or the gate could not tell full FP32 from a lower precision
@@ -1555,6 +1653,29 @@ def phase_config4(dev, seed: int, smi: str) -> dict:
           f"vs the float32 dense route: mean "
           f"{(mfast - mean).abs().max().item() / scale:.3g}, var "
           f"{(vfast - var).abs().max().item() / prior:.3g}")
+    # the LML value+grad on the blocked route, its own path: the counts set
+    # to 0 just before and read just after (K1 builds the Gram; no K2 or K3:
+    # the route is library math, as in the JAX package)
+    cfg_b = dataclasses.replace(cfg, cholesky_method="blocked")
+    k1.launches = k2.launches = k3.launches = 0
+    ll_b, g_b = value_and_grad(theta, data, cfg_b)
+    ll_b = ll_b.item()
+    torch.cuda.synchronize()
+    launches_blocked = {"pairwise_covariance": k1.launches,
+                        "cholesky": k2.launches, "panel_factor": k3.launches}
+    check(launches_blocked == {"pairwise_covariance": 1, "cholesky": 0,
+                               "panel_factor": 0},
+          f"config-4 blocked path (one value+grad) launches "
+          f"{launches_blocked}: K1 = 1 Gram, no K2 / K3")
+    evb = abs(ll_b - ll64) / abs(ll64)
+    egb = (flat(g_b) - g64).abs().max().item() / g64max
+    check(np.isfinite(ll_b) and evb <= C4_LML_RTOL and egb <= C4_GRAD_RTOL,
+          f"blocked route: LML float32 {ll_b:.8g} vs float64: {evb:.3g} x "
+          f"|ll64| <= {C4_LML_RTOL}; gradient {egb:.3g} x max|g64| <= "
+          f"{C4_GRAD_RTOL}")
+    del g_b
+    times["value_grad_blocked"] = host_ms(
+        lambda: value_and_grad(theta, data, cfg_b), iters=2)
     times["fast_inverse"] = host_ms(lambda: gp.fast_predictor_from_state(st),
                                     iters=2)
     times["fast_predict"] = host_ms(
@@ -1595,6 +1716,12 @@ def phase_config4(dev, seed: int, smi: str) -> dict:
                       C4_N ** 3 / 3)
     print(f"config4 bounds: Gram {gram_b[0]:.4f} ms ({gram_b[1]}), "
           f"factorization {fact_b[0]:.3f} ms ({fact_b[1]})")
+    print(f"config4 factor N={C4_N} block 512: blocked 'highest' "
+          f"{times['factor_blocked_highest']:.3f} ms, 'high' "
+          f"{times['factor_blocked_high']:.3f} ms; K3 route "
+          f"{times['factor_pallas_512']:.3f} ms; cholesky_ex "
+          f"{times['factor_cholesky_ex']:.3f} ms; bound {fact_b[0]:.3f} ms "
+          f"({fact_b[1]}) ({smi})")
     print(f"config4 value+grad peak device memory {vg_peak_gib:.2f} GiB "
           f"({smi})")
     C = kernels.gram_matrix(data.X, theta, cfg)
@@ -1604,7 +1731,7 @@ def phase_config4(dev, seed: int, smi: str) -> dict:
     profile_once("value_grad", lambda: value_and_grad(theta, data),
                  times["value_grad"], smi)
     require(not failed, f"config4: {len(failed)} checks failed: {failed}")
-    return launches, launches_fast, launches_tiers
+    return launches, launches_fast, launches_tiers, launches_blocked
 
 
 def _ll_from_factor(L: torch.Tensor, y: torch.Tensor) -> float:
@@ -1761,6 +1888,14 @@ def _config4_tiers(dev, data, data64, cfg, times: dict, check,
             check(ef <= TIER_GATE and ev <= TIER_GATE,
                   f"tier {t!r} at nugget 2: factor {ef:.3g} x max|L|, LML "
                   f"{ev:.3g} x |ll64| <= {TIER_GATE}")
+    for t in ("highest", "high"):
+        L = linalg.blocked_cholesky_opt(C, block=cfg.cholesky_block,
+                                        update_precision=t)
+        ef = (L.double() - L64).abs().max().item() / l64max
+        del L
+        check(ef <= TIER_GATE,
+              f"blocked route tier {t!r} at nugget 2: factor vs float64 "
+              f"{ef:.3g} x max|L| <= {TIER_GATE} ({smi})")
     return launches
 
 
@@ -2781,13 +2916,14 @@ def phase_iterative(dev, seed: int, smi: str, work=None) -> tuple:
     kw = dict(seed=0, rank=I_RANK, probes=I_PROBES, lanczos_iters=I_LANCZOS,
               cg_tol=I_TOL, cg_max_iters=I_ITERS, logdet_method="mbcg",
               row_chunk=I_ROW_CHUNK)
+    kw_fit = {**kw, "cg_max_iters": I_FIT_ITERS}
 
     k1_err, k1_shapes = _iter_k1_checks(dev, data.X, smi)
 
-    def value_and_grad(params, d=data, config=cfg):
+    def value_and_grad(params, d=data, config=cfg, opts=kw):
         leaves = [t.detach().clone().requires_grad_(True) for t in params]
         ll = iterative.lml_iterative(kernels.GPParams(*leaves), d, config,
-                                     **kw)
+                                     **opts)
         grads = torch.autograd.grad(ll, leaves)
         return ll.detach(), grads
 
@@ -2804,7 +2940,7 @@ def phase_iterative(dev, seed: int, smi: str, work=None) -> tuple:
     t0 = time.perf_counter()
     res = iterative.fit_gp_iterative(
         torch.Generator().manual_seed(seed), data, cfg, vg_batch=1,
-        value_linesearch=True, **kw)
+        value_linesearch=True, **kw_fit)
     torch.cuda.synchronize()
     fit_wall = time.perf_counter() - t0
     fit_k1 = k1.launches - vg_k1
@@ -2830,7 +2966,8 @@ def phase_iterative(dev, seed: int, smi: str, work=None) -> tuple:
                 "panel_factor": k3.launches}
     st = res.stats
     print(f"iterative: N={I_N} d={I_D} float32, rank {I_RANK}, {I_PROBES} "
-          f"probes, mBCG, cg_tol {I_TOL}, cg_max_iters {I_ITERS}, row_chunk "
+          f"probes, mBCG, cg_tol {I_TOL}, cg_max_iters {I_ITERS} ("
+          f"{I_FIT_ITERS} in the fit and the profile), row_chunk "
           f"{I_ROW_CHUNK} ({smi})")
     print(f"iterative times: value+grad {vg_wall:.3f} s wall, peak "
           f"{vg_peak:.2f} GiB, K1 {vg_k1} launches; fit {I_R} x {I_STEPS} "
@@ -2878,8 +3015,13 @@ def phase_iterative(dev, seed: int, smi: str, work=None) -> tuple:
     print(f"iterative value only: {time.perf_counter() - t0:.3f} s wall, "
           f"{info.cg_iters} PCG iterations of {I_ITERS} (worst solve "
           f"residual {info.solve_rel_residual.item():.3g})")
-    profile_once("value+grad (check theta)", lambda: value_and_grad(theta),
-                 vg_wall * 1e3, smi, cell="iterative", warm=False)
+    t0 = time.perf_counter()
+    value_and_grad(theta, opts=kw_fit)
+    torch.cuda.synchronize()
+    profile_once(f"value+grad (check theta, PCG at {I_FIT_ITERS})",
+                 lambda: value_and_grad(theta, opts=kw_fit),
+                 (time.perf_counter() - t0) * 1e3, smi, cell="iterative",
+                 warm=False)
     V = torch.randn((I_N, 18), device=dev)
     mv_ms = host_ms(lambda: iterative.gram_matvec(
         data.X, theta, cfg, V, row_chunk=I_ROW_CHUNK), iters=5)
@@ -2965,7 +3107,7 @@ def phase_iterative(dev, seed: int, smi: str, work=None) -> tuple:
              "--regression_order", "1", "--pca_variance", str(C3_PCA),
              "--restarts", "1", "--steps", "2", "--rank", str(I_RANK),
              "--probes", str(I_PROBES), "--cg_tol", str(I_TOL),
-             "--cg_max_iters", str(I_ITERS), "--logdet_method", "mbcg",
+             "--cg_max_iters", str(I_FIT_ITERS), "--logdet_method", "mbcg",
              "--seed", str(seed)])
         cli_wall = time.perf_counter() - t0
         ok = rc == 0 and pathlib.Path(cstate).exists()
@@ -4154,6 +4296,31 @@ def _posterior_z(chain, burn, scaling, theta_true) -> tuple:
     return nat, mu, sd, np.abs(mu - theta_true) / np.maximum(sd, 1e-300)
 
 
+def _iter_emulator(seed: int, dev, iter_params) -> tuple:
+    """Phase 10's N=65,536 GP at its fitted thetas as a one-output
+    matrix-free emulator, with its serving cache (rank I_RANK, cg_tol
+    I_SERVE_TOL): (emulator, cache, the cache's build seconds)."""
+    from madaiemulator_tpu_torch.models.multivariate import (
+        IterativeMultivariateEmulator,
+        precompute_iterative_multivariate,
+    )
+    from madaiemulator_tpu_torch.ops import kernels
+    from madaiemulator_tpu_torch.utils.config import GPConfig
+
+    idata, _ = _iter_data(seed, dev)
+    iemu = _identity_pca_emulator(
+        IterativeMultivariateEmulator, I_D, dev, torch.float32,
+        X=idata.X, Z=idata.y[:, None],
+        params=kernels.GPParams(*(a[None] for a in iter_params)),
+        config=GPConfig(nparams=I_D, regression_order=1))
+    t0 = time.perf_counter()
+    states = precompute_iterative_multivariate(
+        iemu, rank=I_RANK, cg_tol=I_SERVE_TOL, cg_max_iters=I_ITERS,
+        row_chunk=I_ROW_CHUNK)
+    torch.cuda.synchronize()
+    return iemu, states, time.perf_counter() - t0
+
+
 def phase_calibrate(dev, seed: int, smi: str, work, iter_params,
                     mf_emu) -> dict:
     """In-process MCMC calibration (models/calibrate.py) on the card:
@@ -4173,15 +4340,12 @@ def phase_calibrate(dev, seed: int, smi: str, work, iter_params,
     )
     from madaiemulator_tpu_torch.models import calibrate as cal
     from madaiemulator_tpu_torch.models.multivariate import (
-        IterativeMultivariateEmulator,
         emulator_from_numpy,
-        precompute_iterative_multivariate,
     )
     from madaiemulator_tpu_torch.ops import kernels
     from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
     from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
     from madaiemulator_tpu_torch.ops.hopper import panel as k3
-    from madaiemulator_tpu_torch.utils.config import GPConfig
 
     t_phase = time.perf_counter()
     failed = []
@@ -4339,25 +4503,14 @@ def phase_calibrate(dev, seed: int, smi: str, work, iter_params,
     y_s = _truth1m(th_s).numpy() + S_NOISE * crng.standard_normal(1)
     small_run("sparse", f"sparse (phase 11's N={S_N} snapshot, m={S_M})",
               semu, y_s, [S_NOISE ** 2], CAL_SMALL_STEPS, CAL_SMALL_W)
-    idata, _ = _iter_data(seed, dev)
-    iemu = _identity_pca_emulator(
-        IterativeMultivariateEmulator, I_D, dev, torch.float32,
-        X=idata.X, Z=idata.y[:, None],
-        params=kernels.GPParams(*(a[None] for a in iter_params)),
-        config=GPConfig(nparams=I_D, regression_order=1))
-    t0 = time.perf_counter()
-    states = precompute_iterative_multivariate(
-        iemu, rank=I_RANK, cg_tol=I_SERVE_TOL, cg_max_iters=I_ITERS,
-        row_chunk=I_ROW_CHUNK)
-    torch.cuda.synchronize()
-    pre_s = time.perf_counter() - t0
+    iemu, states, pre_s = _iter_emulator(seed, dev, iter_params)
     th_i = np.array([[0.3, 0.6, 0.5, 0.7, 0.2, 0.4, 0.6, 0.8]])
     y_i = _truth64k(th_i) + I_NOISE * crng.standard_normal(1)
     small_run("matrix-free", f"matrix-free (phase 10's N={I_N} emulator, "
               f"serving cache {pre_s:.2f} s, precond variances)", iemu, y_i,
               [I_NOISE ** 2], CAL_SMALL_STEPS, CAL_SMALL_W, states=states,
               variance_method="precond", row_chunk=I_ROW_CHUNK)
-    del states, idata, iemu
+    del states, iemu
 
     # the CLI over phase 7's snapshot with an experiment file
     exp = str(pathlib.Path(work) / "config3" / "experiment.txt")
@@ -4379,6 +4532,427 @@ def phase_calibrate(dev, seed: int, smi: str, work, iter_params,
     print(f"calibrate phase wall {time.perf_counter() - t_phase:.1f} s")
     require(not failed, f"calibrate: {len(failed)} checks failed: {failed}")
     return launches, checks
+
+
+def _ishigami(U):
+    """Ishigami on [0,1]^3 mapped to [-pi, pi]^3 (a=7, b=0.1)."""
+    X = (U - 0.5) * (2.0 * math.pi)
+    return (torch.sin(X[:, 0]) + 7.0 * torch.sin(X[:, 1]) ** 2
+            + 0.1 * X[:, 2] ** 4 * torch.sin(X[:, 0]))
+
+
+def _sobol_se(f, A, B) -> tuple:
+    """The Saltelli estimates of f (numpy (m, d) -> (m, t)) on the designs A
+    and B (n, d) and their Monte Carlo standard errors (the per-sample
+    terms' sd over sqrt(n)): (first, total, se_first, se_total), each
+    (d, t)."""
+    n, d = A.shape
+    fA, fB = f(A), f(B)
+    fAB = np.stack([f(np.where(np.arange(d) == i, B, A)) for i in range(d)])
+    pooled = np.concatenate([fA, fB])
+    V = pooled.var(0)
+    t1 = fB[None] * (fAB - fA[None]) / V
+    tt = (fA[None] - fAB) ** 2 / (2.0 * V)
+    return (t1.mean(1), tt.mean(1), t1.std(1) / math.sqrt(n),
+            tt.std(1) / math.sqrt(n))
+
+
+def _picks_agree(pool, w64, sel32, sel64, gap) -> tuple:
+    """(ok, what): the float32 picks equal the float64 ones, or at the first
+    pick where they split the two candidates' float64 greedy scores (the
+    same earlier picks) differ by at most 2 gap x max w64 x their distance
+    factor: a near-tie the float32 weights' gap can split."""
+    d = pool.shape[1]
+    for i, (a, b) in enumerate(zip(sel32, sel64)):
+        if a == b:
+            continue
+        if i == 0:
+            fa = fb = 1.0
+        else:
+            prev = pool[list(sel64[:i])]
+            fa = min(float(d), float(((prev - pool[a]) ** 2).sum(1).min()))
+            fb = min(float(d), float(((prev - pool[b]) ** 2).sum(1).min()))
+        sa, sb = w64[a] * fa, w64[b] * fb
+        lim = 2.0 * gap * w64.max() * max(fa, fb)
+        return (sb - sa <= lim,
+                f"split at pick {i}: float64 scores {sa:.6g} (float32's) vs "
+                f"{sb:.6g}, apart {sb - sa:.3g} <= {lim:.3g}")
+    return True, f"all {len(sel32)} picks equal"
+
+
+def phase_design(dev, seed: int, smi: str, work, iter_params,
+                 mf_emu) -> tuple:
+    """Sequential design and Sobol sensitivity (models/design.py,
+    models/sensitivity.py) on the card: on phase 7's config-3 snapshot at
+    float32, an active-variance batch, an NROY wave against phase 14's
+    experiment file, Sobol indices and main effects, each with the launch
+    counts set to 0 just before and read just after and K1 / K2 equal to
+    the counts the chunking implies; the acquisition weights, the picks,
+    the viable fraction and the Sobol indices against a float64 emulator on
+    the same pool and draws; the Sobol indices against the simulator's own
+    and Ishigami against its closed forms; every NROY pick's float64
+    implausibility; the other kinds (phase 13's multi-fidelity emulator,
+    phase 11's N=10^6 sparse snapshot, phase 10's N=65,536 matrix-free
+    emulator on its serving cache); K1 on every path's own operands; the
+    CLI's design (both methods, --matrix_free) and sensitivity
+    --main_effects against the in-process calls; compat's 1-D sin at
+    float64 and float32. Every check is made and printed; the phase fails
+    at its end if any did not pass."""
+    from madaiemulator_tpu_torch import compat
+    from madaiemulator_tpu_torch.cli import _sensitivity_fn
+    from madaiemulator_tpu_torch.io.experiment import read_experiment_file
+    from madaiemulator_tpu_torch.io.snapshot import (
+        read_snapshot,
+        read_snapshot_auto,
+    )
+    from madaiemulator_tpu_torch.models import design, sensitivity
+    from madaiemulator_tpu_torch.models.calibrate import (
+        implausibility_from_moments,
+    )
+    from madaiemulator_tpu_torch.models.multivariate import (
+        _predict_components,
+        emulator_from_numpy,
+        reconstruct_observables,
+    )
+    from madaiemulator_tpu_torch.ops import kernels
+    from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
+    from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
+    from madaiemulator_tpu_torch.ops.hopper import panel as k3
+    from madaiemulator_tpu_torch.utils import profiling
+    from madaiemulator_tpu_torch.utils.designs import (
+        apply_scaling,
+        unapply_scaling,
+    )
+
+    t_phase = time.perf_counter()
+    failed = []
+
+    def check(ok: bool, what: str) -> None:
+        print(f"design check {'ok' if ok else 'FAILED'}: {what}")
+        if not ok:
+            failed.append(what)
+
+    def gen(k=0):
+        return torch.Generator().manual_seed(seed + k)
+
+    def counted(fn):
+        """(fn(), wall s, launches), the counts set to 0 just before."""
+        k1.launches = k2.launches = k3.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {
+            "pairwise_covariance": k1.launches, "cholesky": k2.launches,
+            "panel_factor": k3.launches}
+
+    def k1_only(n):
+        return {"pairwise_covariance": n, "cholesky": 0, "panel_factor": 0}
+
+    def in_box(pts, emu):
+        lo = emu.scaling.mins.double().cpu().numpy()
+        hi = lo + emu.scaling.ranges.double().cpu().numpy()
+        tol = 1e-6 * (hi - lo)
+        return bool(np.isfinite(pts).all() and (pts >= lo - tol).all()
+                    and (pts <= hi + tol).all())
+
+    c3 = pathlib.Path(work) / "config3"
+    state, exp = str(c3 / "state.txt"), str(c3 / "experiment.txt")
+    emu, _, _ = read_snapshot(state, device=dev, dtype=torch.float32)
+    jit32 = kernels.effective_jitter_frac(C3_N, torch.float32, emu.config)
+    arrays = {k: v.double().cpu().numpy() for k, v in dict(
+        mins=emu.scaling.mins, ranges=emu.scaling.ranges, X=emu.X, Z=emu.Z,
+        ymean=emu.pca.ymean, ystd=emu.pca.ystd,
+        eigenvalues=emu.pca.eigenvalues, U=emu.pca.U,
+        log_amp=emu.params.log_amp, log_nugget=emu.params.log_nugget,
+        log_ls=emu.params.log_ls).items()}
+    e64 = emulator_from_numpy(arrays, dataclasses.replace(
+        emu.config, jitter=jit32), device=dev, dtype=torch.float64)
+    y_exp, exp_var = read_experiment_file(exp)
+    _, _, f = _heavy_ion_like(np.random.default_rng(seed), C3_N, C3_D, C3_T,
+                              with_simulator=True)
+    fn32 = sensitivity.multivariate_mean_fn(emu)
+    n_sob = SOB_N * (C3_D + 2)
+    n_me = C3_D * ME_GRID * ME_N
+
+    def run_v(e=emu, **kw):
+        return design.active_variance_design(gen(), e, DES_NEW,
+                                             pool_size=DES_POOL, **kw)
+
+    def run_n():
+        return design.nroy_wave_design(
+            gen(), emu, y_exp, exp_var, DES_NEW, threshold=DES_THRESHOLD,
+            pool_size=DES_NROY_POOL)
+
+    def run_s(fn=fn32, d=C3_D):
+        return sensitivity.sobol_indices(fn, d, gen(), n=SOB_N,
+                                         query_chunk=SEN_QC, device=dev)
+
+    def run_m():
+        return sensitivity.main_effects(fn32, C3_D, gen(1), grid=ME_GRID,
+                                        n=ME_N, query_chunk=SEN_QC,
+                                        device=dev)
+
+    # the main paths on config 3, each counted
+    prop_v, wall_v, l_v = counted(run_v)
+    prop_n, wall_n, l_n = counted(run_n)
+    sob, wall_s, l_s = counted(run_s)
+    (gv, eff), wall_m, l_m = counted(run_m)
+    chunks_s, chunks_m = -(-n_sob // SEN_QC), -(-n_me // SEN_QC)
+    for what, got, want in (
+            (f"active_variance_design (pool {DES_POOL})", l_v, k1_only(1)),
+            (f"nroy_wave_design (pool {DES_NROY_POOL})", l_n, k1_only(1)),
+            (f"sobol_indices ({n_sob} evaluations, {chunks_s} chunks)", l_s,
+             k1_only(chunks_s)),
+            (f"main_effects ({n_me} evaluations, {chunks_m} chunks)", l_m,
+             k1_only(chunks_m))):
+        check(got == want, f"config-3 {what} launches {got} = {want} (one "
+              f"K1 cross covariance a predict; the states exist)")
+    paths = {"design": {k: l_v[k] + l_n[k] for k in l_v},
+             "sensitivity": {k: l_s[k] + l_m[k] for k in l_s}}
+    check(prop_v.points.shape == prop_n.points.shape == (DES_NEW, C3_D)
+          and in_box(prop_v.points, emu) and in_box(prop_n.points, emu)
+          and bool(torch.isfinite(sob.first).all()
+                   & torch.isfinite(sob.total).all())
+          and sob.first.shape == (C3_D, C3_T)
+          and eff.shape == (C3_D, ME_GRID, C3_T)
+          and bool(torch.isfinite(eff).all()),
+          f"config-3 outputs: {DES_NEW} finite points inside the design box "
+          f"from each design (NROY viable fraction "
+          f"{prop_n.pool_fraction_viable:.4f}), Sobol indices "
+          f"{tuple(sob.first.shape)} and main effects {tuple(eff.shape)} "
+          f"finite")
+
+    # float32 against float64 on the same pool: the weights, the picks
+    pool = design._candidate_pool(gen(), DES_POOL, C3_D,
+                                  torch.float32).to(dev)
+
+    def moments(e, P):
+        m, v = _predict_components(e.states, e.params, e.X, e.Z, P, e.config,
+                                   dZ=e.dZ)
+        return reconstruct_observables(m, v, e.pca)
+
+    with torch.no_grad():
+        w32 = design._variance_weights(moments(emu, pool)[1], emu.pca.ystd)
+        w64 = design._variance_weights(moments(e64, pool.double())[1],
+                                       e64.pca.ystd)
+    wgap = ((w32.double() - w64).abs().max() / w64.abs().max()).item()
+    sel32 = design._greedy_maximin(pool, w32, DES_NEW)[0].tolist()
+    sel64 = design._greedy_maximin(pool.double(), w64, DES_NEW)[0].tolist()
+    same_entry = np.array_equal(prop_v.points, unapply_scaling(
+        pool[sel32], emu.scaling).cpu().numpy())
+    ok_p, what_p = _picks_agree(pool.double().cpu().numpy(),
+                                w64.cpu().numpy(), sel32, sel64, wgap)
+    check(wgap <= DES_WEIGHT_RTOL and same_entry and ok_p,
+          f"acquisition weights float32 vs float64 over the {DES_POOL}-point "
+          f"pool: {wgap:.3g} x max <= {DES_WEIGHT_RTOL} (jitter {jit32:.3g} "
+          f"x amp on both); the entry point's picks are the pool's "
+          f"{sel32}: {same_entry}; float64 picks {sel64}: {what_p}")
+
+    # the NROY screen: the viable fraction, every pick's float64
+    # implausibility
+    pooln = design._candidate_pool(gen(), DES_NROY_POOL, C3_D,
+                                   torch.float32).to(dev)
+    s2 = torch.tensor(exp_var, device=dev)
+    yq = torch.tensor(y_exp, device=dev)
+    with torch.no_grad():
+        imp32 = implausibility_from_moments(*moments(emu, pooln),
+                                            yq.float(), s2.float()).double()
+        imp64 = implausibility_from_moments(*moments(e64, pooln.double()),
+                                            yq, s2)
+    igap = (imp32 - imp64).abs().max().item()
+    frac64 = (imp64 <= DES_THRESHOLD).double().mean().item()
+    frac32 = prop_n.pool_fraction_viable
+    near = int(((imp64 - DES_THRESHOLD).abs() <= igap).sum())
+    picks = apply_scaling(torch.tensor(prop_n.points, device=dev,
+                                       dtype=torch.float64), e64.scaling)
+    with torch.no_grad():
+        imp_picks = implausibility_from_moments(*moments(e64, picks), yq,
+                                                s2).cpu().numpy()
+    k_viable = min(DES_NEW, int(round(frac32 * DES_NROY_POOL)))
+    check(abs(frac32 - frac64) * DES_NROY_POOL <= near
+          and bool((imp_picks[:k_viable] <= DES_THRESHOLD + igap).all()),
+          f"NROY viable fraction float32 {frac32:.5f} vs float64 "
+          f"{frac64:.5f} ({abs(frac32 - frac64) * DES_NROY_POOL:.0f} points "
+          f"apart <= {near} within the implausibility gap {igap:.3g} of "
+          f"{DES_THRESHOLD}); the picks' float64 implausibility "
+          f"{np.round(imp_picks, 3).tolist()}: the first {k_viable} <= "
+          f"{DES_THRESHOLD} + gap")
+
+    # Sobol: float32 against float64 on the same draws; against the
+    # simulator on the same A and B; Ishigami
+    sob64 = run_s(sensitivity.multivariate_mean_fn(e64))
+    sgap = max((a.double() - b).abs().max().item()
+               for a, b in zip(sob[:2], sob64[:2]))
+    check(sgap <= SOB_F32_ATOL,
+          f"Sobol indices float32 vs float64 (the same {SOB_N}-point A and "
+          f"B): max {sgap:.3g} <= {SOB_F32_ATOL}")
+    A, B = sensitivity._saltelli_uniform(gen(), SOB_N, C3_D, torch.float32,
+                                         dev)
+    raw = [unapply_scaling(M.double(), e64.scaling).cpu().numpy()
+           for M in (A, B)]
+    mins = e64.scaling.mins.cpu().numpy()
+    ranges = e64.scaling.ranges.cpu().numpy()
+    s1, st, se1, set_ = _sobol_se(f, *raw)
+    dev1 = np.abs(sob.first.double().cpu().numpy() - s1)
+    devt = np.abs(sob.total.double().cpu().numpy() - st)
+    lim1, limt = 3.0 * se1 + SOB_TRUTH_ATOL, 3.0 * set_ + SOB_TRUTH_ATOL
+    check(bool((dev1 <= lim1).all() and (devt <= limt).all()),
+          f"Sobol indices against the simulator's own on the same A and B "
+          f"(raw box {np.round(mins, 4).tolist()} + "
+          f"{np.round(ranges, 4).tolist()}): first max |diff| "
+          f"{dev1.max():.3g} (largest share of its limit "
+          f"{(dev1 / lim1).max():.3g}), total {devt.max():.3g} "
+          f"({(devt / limt).max():.3g}); limit 3 MC standard errors "
+          f"(median {np.median(se1):.3g} / {np.median(set_):.3g}) + "
+          f"{SOB_TRUTH_ATOL}; simulator totals by parameter "
+          f"{np.round(st.max(1), 3).tolist()}")
+    a_, b_, pi = 7.0, 0.1, math.pi
+    V1 = 0.5 * (1 + b_ * pi ** 4 / 5) ** 2
+    V2 = a_ ** 2 / 8
+    V13 = b_ ** 2 * pi ** 8 * (1 / 18 - 1 / 50)
+    V = V1 + V2 + V13
+    ish = sensitivity.sobol_indices(_ishigami, 3, gen(), n=ISHIGAMI_N,
+                                    dtype=torch.float64, device=dev)
+    e1 = np.abs(ish.first.cpu().numpy() - [V1 / V, V2 / V, 0.0]).max()
+    et = np.abs(ish.total.cpu().numpy()
+                - [(V1 + V13) / V, V2 / V, V13 / V]).max()
+    ev = abs(ish.variance.item() - V) / V
+    check(e1 <= ISHIGAMI_ATOL and et <= ISHIGAMI_ATOL and ev <= 0.05,
+          f"Ishigami on the card (n={ISHIGAMI_N}, float64): first "
+          f"{np.round(ish.first.cpu().numpy(), 4).tolist()} off by {e1:.3g},"
+          f" total off by {et:.3g} <= {ISHIGAMI_ATOL}; variance {ev:.3g} "
+          f"<= 0.05 of {V:.4f}")
+
+    # the other emulator kinds, each counted; their operands kept for the
+    # kernel checks
+    semu, _, _ = read_snapshot_auto(
+        str(pathlib.Path(work) / "sparse" / "sgpr_1m.npz"), device=dev,
+        dtype=torch.float32)
+    iemu, states, _ = _iter_emulator(seed, dev, iter_params)
+    n_lv = len(mf_emu.levels)
+    kinds = {
+        "multi-fidelity": (mf_emu, {}, n_lv),
+        "sparse": (semu, {}, 1),
+        "matrix-free": (iemu, dict(states=states, row_chunk=I_ROW_CHUNK),
+                        -(-DES_POOL // 1024)),
+    }
+    walls = {"config 3": wall_v}
+    for kind, (e, kw, per) in kinds.items():
+        prop, walls[kind], got = counted(lambda e=e, kw=kw: run_v(e, **kw))
+        check(got == k1_only(per) and prop.points.shape[0] == DES_NEW
+              and in_box(prop.points, e),
+              f"{kind} active_variance_design (pool {DES_POOL}) in "
+              f"{walls[kind]:.3f} s: launches {got} = {k1_only(per)}; "
+              f"{DES_NEW} finite points inside the design box")
+        if kind == "matrix-free":
+            continue
+        fn, d = _sensitivity_fn(e)
+        res, w_s, got = counted(lambda fn=fn, d=d: run_s(fn, d))
+        want = k1_only(per * -(-SOB_N * (d + 2) // SEN_QC))
+        check(got == want and bool(torch.isfinite(res.first).all()
+                                   & torch.isfinite(res.total).all()),
+              f"{kind} sobol_indices ({SOB_N * (d + 2)} evaluations) in "
+              f"{w_s:.3f} s: launches {got} = {want}; indices finite, "
+              f"largest total {res.total.max().item():.3f}")
+    checks = {}
+    for kind, (e, kw, _) in [("config-3", (emu, {}, 1))] + list(
+            kinds.items()):
+        with _path_operands() as seen:
+            run_v(e, **kw)
+        for name, readings in _path_kernel_checks(
+                dev, seen, smi, "design", f"{kind} ").items():
+            checks.setdefault(name, {}).update(readings)
+    del states, iemu, semu
+
+    # times (best of 3 after a warm-up, utils.profiling.timed) and the busy
+    # share
+    t_v, _ = profiling.timed(run_v)
+    t_n, _ = profiling.timed(run_n)
+    t_s, _ = profiling.timed(run_s)
+    t_m, _ = profiling.timed(run_m)
+    print(f"design times (best of 3): active_variance_design "
+          f"{t_v * 1e3:.3f} ms, nroy_wave_design {t_n * 1e3:.3f} ms; design "
+          f"walls of the counted runs by kind "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+          + f"; sobol_indices {t_s * 1e3:.3f} ms = {n_sob / t_s:.0f} "
+          f"evaluations/s; main_effects {t_m * 1e3:.3f} ms = "
+          f"{n_me / t_m:.0f} evaluations/s ({smi})")
+    for what, fn, t in (("active_variance_design", run_v, t_v),
+                        ("sobol_indices", run_s, t_s),
+                        ("main_effects", run_m, t_m)):
+        profile_once(what, fn, t * 1e3, smi, cell="design")
+
+    # the CLI on phase 7's snapshot against the in-process calls (the same
+    # seeds, the port's own draws)
+    def cli(argv, what):
+        t0 = time.perf_counter()
+        rc, _, err = _run_cli(argv + ["--dtype", "float32", "--device",
+                                      "cuda", "--seed", str(seed), "--quiet"])
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"CLI {what} exit {rc} in {wall:.2f} s (process "
+              f"start included); stderr {err.strip()[-300:]!r}")
+        return rc == 0
+
+    out = {k: str(c3 / f"{k}.txt") for k in ("variance", "nroy", "sobol",
+                                             "effects")}
+    for method, prop, extra in (
+            ("variance", prop_v, []),
+            ("nroy", prop_n, ["--experiment_file", exp, "--threshold",
+                              str(DES_THRESHOLD), "--pool_size",
+                              str(DES_NROY_POOL)])):
+        if cli(["design", state, "--method", method, "--output", out[method]]
+               + extra, f"design --method={method}"):
+            rows = np.loadtxt(out[method], ndmin=2)
+            check(np.array_equal(rows, prop.points.astype(np.float64)),
+                  f"CLI design --method={method}: {rows.shape[0]} rows equal "
+                  f"the in-process proposal's")
+    if cli(["sensitivity", state, "--output", out["sobol"], "--main_effects",
+            out["effects"]], "sensitivity --main_effects"):
+        tab = [ln.split() for ln in open(out["sobol"]) if ln[0] != "#"]
+        got = np.array([[float(r[2]), float(r[3])] for r in tab])
+        want = np.stack([sob.first.cpu().numpy().reshape(-1),
+                         sob.total.cpu().numpy().reshape(-1)], 1)
+        me = np.loadtxt(out["effects"])
+        me_want = np.concatenate(
+            [gv.cpu().numpy()[:, None],
+             eff.cpu().numpy().transpose(1, 0, 2).reshape(ME_GRID, -1)], 1)
+        check(np.array_equal(got, want.astype(np.float64))
+              and np.array_equal(me, me_want.astype(np.float64)),
+              f"CLI sensitivity: the {len(tab)}-row Sobol table and the "
+              f"{me.shape} main-effects table equal the in-process results "
+              f"(max diff {np.abs(got - want).max():.3g}, "
+              f"{np.abs(me - me_want).max():.3g})")
+    cstate = str(pathlib.Path(work) / "iterative" / "iter_state.txt")
+    ipts = str(c3 / "design_matrix_free.txt")
+    if cli(["design", cstate, "--matrix_free", "--output", ipts],
+           f"design --matrix_free on phase 10's N={I_CLI_N} snapshot"):
+        cemu, _, _ = read_snapshot(cstate, device=dev, dtype=torch.float32,
+                                   build_states=False)
+        rows = np.loadtxt(ipts, ndmin=2)
+        check(rows.shape == (DES_NEW, C3_D) and in_box(rows, cemu),
+              f"CLI design --matrix_free: {rows.shape} finite points inside "
+              f"the design box")
+
+    # compat: tests/test_compat.py's 1-D sin on the card
+    Xs = np.linspace(0, 10, 30)[:, None]
+    ys = np.sin(Xs[:, 0])
+    q = np.linspace(0.5, 9.5, 20)[:, None]
+    for dtype in (None, torch.float32):
+        t0 = time.perf_counter()
+        th = compat.call_estimate(Xs, ys, n_restarts=3, max_steps=40, seed=1,
+                                  dtype=dtype, device=dev)
+        m, v = compat.call_emulate_at_list(Xs, ys, th, q, dtype=dtype,
+                                           device=dev)
+        rmse = float(np.sqrt(np.mean((m - np.sin(q[:, 0])) ** 2)))
+        check(rmse < COMPAT_RMSE and bool(np.all(v >= 0)),
+              f"compat {'float64' if dtype is None else 'float32'}: thetas "
+              f"{np.round(th.astype(np.float64), 5).tolist()}, rmse {rmse:.3g}"
+              f" < {COMPAT_RMSE}, variances >= 0 "
+              f"({time.perf_counter() - t0:.2f} s)")
+    print(f"design phase wall {time.perf_counter() - t_phase:.1f} s")
+    require(not failed, f"design: {len(failed)} checks failed: {failed}")
+    return paths, checks
 
 
 class _NativeBuild:
@@ -4419,6 +4993,7 @@ def main() -> int:
         return 1
     import madaiemulator_tpu_torch  # noqa: F401  (sets the FP32 flags)
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
     # phases 7, 10 and 11 leave their files here for phases 12-14
@@ -4428,21 +5003,21 @@ def main() -> int:
     # phase 13 serves a snapshot by native/'s madai_query: built meanwhile
     native = _NativeBuild(work / "native")
     try:
-        return _run_phases(args, dev, rng, work, smi, native)
+        return _run_phases(args, dev, rng, work, smi, native, t_start)
     finally:
         native.stop()
         work_dir.cleanup()
 
 
-def _run_phases(args, dev, rng, work, smi, native) -> int:
+def _run_phases(args, dev, rng, work, smi, native, t_start) -> int:
     phase_build()
     kernels = phase_kernels(dev, rng, np.random.default_rng([args.seed, 1]))
     phase_goldens(dev)
     paths = {}
     paths["serve_multivariate"], paths["serve_fast"] = phase_slice(dev, rng,
                                                                    smi)
-    (paths["config4"], paths["config4_fast"],
-     paths["config4_tiers"]) = phase_config4(dev, args.seed, smi)
+    (paths["config4"], paths["config4_fast"], paths["config4_tiers"],
+     paths["config4_blocked"]) = phase_config4(dev, args.seed, smi)
     paths["config3_fit"], k2_fit = phase_config3(dev, args.seed, smi,
                                                  work / "config3")
     paths["config5"], c5 = phase_config5(dev, args.seed, smi)
@@ -4457,6 +5032,9 @@ def _run_phases(args, dev, rng, work, smi, native) -> int:
         dev, args.seed, smi, work, native)
     paths["calibrate"], cal_checks = phase_calibrate(
         dev, args.seed, smi, work, iter_params, mf_emu)
+    des_paths, des_checks = phase_design(dev, args.seed, smi, work,
+                                         iter_params, mf_emu)
+    paths.update(des_paths)
     del mf_emu
     for k in kernels:
         by_path = {p: c.get(k["name"], 0) for p, c in paths.items()}
@@ -4489,7 +5067,8 @@ def _run_phases(args, dev, rng, work, smi, native) -> int:
                                            reading["max_abs_err"])
                 k["diagnostics"] = {label: reading}
         for cell, checks in (("multifidelity", mf_checks),
-                             ("calibrate", cal_checks)):
+                             ("calibrate", cal_checks),
+                             ("design", des_checks)):
             # every shape each new path handed the kernel; K2 and K3 at
             # fitted thetas are gated by their backward errors, as above
             readings = checks.get(k["name"], {})
@@ -4503,6 +5082,8 @@ def _run_phases(args, dev, rng, work, smi, native) -> int:
             # the gradient path's lane batch (16, 512, 512)
             k["max_abs_err"] = max(k["max_abs_err"], k3_grad["max_abs_err"])
             k["gradient_batch"] = k3_grad
+    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s, every "
+          f"phase ({smi})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,16 +2,15 @@
 madaiemulator_tpu/cli.py: `estimate_thetas` on the dense, the matrix-free,
 the sparse and the multi-fidelity path, `interactive_mode`, `print_thetas`,
 `convert` and `validate` on the dense, the sparse and the multi-fidelity
-snapshot, as text or as .npz by the state file's extension, and
-`calibrate`). The JAX CLI's `design` and `sensitivity` are not ported:
-argparse rejects them (exit 2).
+snapshot, as text or as .npz by the state file's extension, `calibrate`,
+`design` and `sensitivity`: every subcommand of the JAX CLI).
 
     interactive_emulator_torch estimate_thetas <model_file> <state_file>
         [--regression_order=N] [--covariance_fn=NAME] [--pca_variance=P]
         [--restarts=R] [--steps=S] [--seed=K] [--dtype=float64|float32]
         [--device=cuda|cpu] [--quiet] [--linesearch=zoom|backtracking]
         [--restart_chunk=C] [--alpha_grid=A1,A2,...] [--alpha_refine=K]
-        [--cholesky_method=pallas|left|xla] [--gram_method=pallas|xla]
+        [--cholesky_method=pallas|left|blocked|xla] [--gram_method=pallas|xla]
         [--update_precision=auto|default|high|highest]
         [--noise_file=PATH] [--gradients_file=PATH]
         [--fit_method=dense|iterative] [--rank=K] [--probes=P]
@@ -41,8 +40,10 @@ the AR(1) co-kriging emulator (models/multifidelity.py; scalar, or
 multivariate with its `noutputs` header: one shared PCA basis), every level
 dense, and writes the multi-fidelity snapshot; --noise_file,
 --gradients_file, --alpha_grid, --inducing and --fit_method=iterative exit
-2 there. --cholesky_method=blocked is not ported and exits 2 with one line
-on stderr.
+2 there. --cholesky_method=blocked factors every Gram of more than 512
+rows (GPConfig.cholesky_block) by the right-looking blocked factorization
+(ops/linalg.blocked_cholesky_opt: library math on the card and on the CPU,
+as in the JAX package).
 
     interactive_emulator_torch print_thetas <state_file>
         prints the fitted per-component hyperparameters (natural space).
@@ -81,6 +82,26 @@ on stderr.
         matrix-free serving cache (sparse and multi-fidelity snapshots exit
         2 with it).
 
+    interactive_emulator_torch design <state_file> [--method=variance|nroy]
+        [--experiment_file=PATH] [--n_new=K] [--pool_size=P]
+        [--threshold=T] [--seed=K] [--dtype=float64|float32]
+        [--device=cuda|cpu] [--output=PATH] [--quiet] [--matrix_free
+        [--rank=K] [--cg_tol=T] [--cg_max_iters=I]]
+        the next K simulator runs (models/design.py): a greedy maximin
+        batch from a P-point Latin-hypercube pool, by predictive variance
+        or (nroy) inside the region the experiment file does not rule out;
+        natural-space points to --output, one a row, '#' header. Sparse and
+        multi-fidelity snapshots exit 2 with --matrix_free.
+
+    interactive_emulator_torch sensitivity <state_file> [--n=N] [--seed=K]
+        [--dtype=float64|float32] [--device=cuda|cpu] [--output=PATH]
+        [--main_effects=PATH [--grid=G] [--effects_n=M]] [--query_chunk=Q]
+        [--quiet]
+        Sobol first-order and total indices per (parameter, observable)
+        from N (d + 2) emulator evaluations (models/sensitivity.py), and
+        with --main_effects the main-effect curves on a G-point grid (its
+        base design drawn from seed + 1).
+
     interactive_emulator_torch interactive_mode <state_file>
         [--dtype=float64|float32] [--device=cuda|cpu]
         [--serve_method=dense|fast|iterative] [--rank=K] [--cg_tol=T]
@@ -107,9 +128,9 @@ Every complete point already buffered on the pipe is answered in one batched
 call (at most 1024 points per call).
 
 --device cuda (the default) needs a CUDA device: without one
-`estimate_thetas`, `interactive_mode`, `validate` and `calibrate` exit 2
-with "error: CUDA device not available" (they never move to the CPU by
-themselves). At float32 the
+`estimate_thetas`, `interactive_mode`, `validate`, `calibrate`, `design`
+and `sensitivity` exit 2 with "error: CUDA device not available" (they
+never move to the CPU by themselves). At float32 the
 fit and the serve path run on the Hopper kernels; float64 (the default)
 takes the library path. Also runnable as `python -m madaiemulator_tpu_torch.cli`.
 """
@@ -193,8 +214,8 @@ def _build_parser() -> argparse.ArgumentParser:
         "--cholesky_method", choices=["xla", "left", "blocked", "pallas"],
         default="pallas",
         help="'pallas' (default here): the Hopper kernel K2 at float32; "
-        "'xla': the library; 'left': left-looking blocked; 'blocked' is not "
-        "ported",
+        "'xla': the library; 'left': left-looking blocked; 'blocked': "
+        "right-looking blocked",
     )
     est.add_argument(
         "--gram_method", choices=["xla", "pallas"], default="pallas",
@@ -377,19 +398,101 @@ def _build_parser() -> argparse.ArgumentParser:
                      help="holdout: preconditioner rank")
     val.add_argument("--cg_tol", type=float, default=1e-6)
     val.add_argument("--cg_max_iters", type=int, default=256)
+
+    des = sub.add_parser(
+        "design",
+        help="propose the next batch of simulator runs",
+        description=(
+            "Sequential experimental design over the trained emulator. "
+            "--method=variance places runs at the emulator's largest "
+            "normalized predictive variance (batch active learning); "
+            "--method=nroy places a history-matching wave inside the "
+            "not-ruled-out-yet region screened by the implausibility "
+            "statistic against --experiment_file observations. Both pick "
+            "a greedy weighted-maximin batch from a Latin-hypercube "
+            "candidate pool scored in one batched predict. Points are "
+            "written in natural parameter space, one row per run."
+        ),
+    )
+    des.add_argument("state_file")
+    des.add_argument(
+        "--method", choices=["variance", "nroy"], default="variance")
+    des.add_argument(
+        "--experiment_file", default=None, metavar="PATH",
+        help="observations for --method=nroy (calibrate's format)",
+    )
+    des.add_argument("--n_new", type=int, default=8,
+                     help="batch size: number of runs to propose")
+    des.add_argument("--pool_size", type=int, default=4096,
+                     help="Latin-hypercube candidate pool size")
+    des.add_argument(
+        "--threshold", type=float, default=3.0,
+        help="nroy: implausibility cutoff (3 = classic 3-sigma rule)",
+    )
+    des.add_argument("--seed", type=int, default=0)
+    des.add_argument("--dtype", choices=["float64", "float32"],
+                     default="float64")
+    des.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    des.add_argument(
+        "--output", default="-", metavar="PATH",
+        help="proposed points destination ('-' = stdout)",
+    )
+    des.add_argument("--quiet", action="store_true")
+    des.add_argument(
+        "--matrix_free", action="store_true",
+        help="score the candidate pool through the matrix-free (PCG) "
+        "serving path instead of dense factorizations: the route at N "
+        "past dense device memory",
+    )
+    des.add_argument("--rank", type=int, default=64,
+                     help="matrix-free: preconditioner rank")
+    des.add_argument("--cg_tol", type=float, default=1e-6)
+    des.add_argument("--cg_max_iters", type=int, default=256)
+
+    sen = sub.add_parser(
+        "sensitivity",
+        help="global sensitivity analysis (Sobol indices) of a trained "
+        "emulator",
+        description=(
+            "Variance-based global sensitivity analysis over the trained "
+            "emulator (models/sensitivity.py): Sobol first-order and total "
+            "indices per input parameter (per observable), estimated from "
+            "a Saltelli pick-freeze design: n*(d+2) batched emulator "
+            "predictions, no simulator runs. Indices are fractions of "
+            "output variance over the design box. Optionally also writes "
+            "Oakley-O'Hagan main-effect curves (--main_effects)."
+        ),
+    )
+    sen.add_argument("state_file")
+    sen.add_argument("--n", type=int, default=4096,
+                     help="Saltelli base-design size (n*(d+2) evaluations)")
+    sen.add_argument("--seed", type=int, default=0)
+    sen.add_argument("--dtype", choices=["float64", "float32"],
+                     default="float64")
+    sen.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    sen.add_argument(
+        "--output", default="-", metavar="PATH",
+        help="Sobol table destination ('-' = stdout): one row per "
+        "(parameter, observable): first-order and total index",
+    )
+    sen.add_argument(
+        "--main_effects", default=None, metavar="PATH",
+        help="also write main-effect curves E[f | x_i = v]: one row per "
+        "grid value v, columns = grid value then per (param, observable) "
+        "curve",
+    )
+    sen.add_argument("--grid", type=int, default=33,
+                     help="main-effects grid resolution")
+    sen.add_argument("--effects_n", type=int, default=2048,
+                     help="main-effects Monte Carlo samples per grid value")
+    sen.add_argument("--query_chunk", type=int, default=4096)
+    sen.add_argument("--quiet", action="store_true")
     return p
 
 
 def _error(msg: str) -> int:
     print(f"error: {msg}", file=sys.stderr)
     return 2
-
-
-def _unported_flag(args) -> Optional[str]:
-    """The first flag this port cannot honour yet, as an error line."""
-    if args.cholesky_method == "blocked":
-        return "--cholesky_method=blocked is not ported; use pallas, left or xla"
-    return None
 
 
 def cmd_estimate_thetas(args) -> int:
@@ -410,9 +513,6 @@ def cmd_estimate_thetas(args) -> int:
         GPConfig,
     )
 
-    unported = _unported_flag(args)
-    if unported:
-        return _error(unported)
     if args.inducing and (args.fit_method == "iterative" or args.alpha_grid):
         return _error("--inducing (sparse SGPR) excludes "
                       "--fit_method=iterative and --alpha_grid "
@@ -1230,6 +1330,188 @@ def cmd_calibrate(args) -> int:
     return 0
 
 
+def _write_rows(dest_path: str, head: str, rows) -> None:
+    """A '#' header line, then one "%.17g" row a point, to dest_path ('-' =
+    stdout)."""
+    dest = sys.stdout if dest_path == "-" else open(dest_path, "w")
+    try:
+        dest.write(head + "\n")
+        for row in rows:
+            dest.write(" ".join(f"{v:.17g}" for v in row) + "\n")
+    finally:
+        if dest is not sys.stdout:
+            dest.close()
+
+
+def cmd_design(args) -> int:
+    import torch
+
+    from madaiemulator_tpu_torch.io.experiment import read_experiment_file
+    from madaiemulator_tpu_torch.io.snapshot import read_snapshot_auto
+    from madaiemulator_tpu_torch.models.design import (
+        active_variance_design,
+        nroy_wave_design,
+    )
+    from madaiemulator_tpu_torch.models.multifidelity import is_multifidelity
+    from madaiemulator_tpu_torch.models.sparse import is_sparse
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        return _error("CUDA device not available")
+    dtype = torch.float64 if args.dtype == "float64" else torch.float32
+    try:
+        emu, param_names, output_names = read_snapshot_auto(
+            args.state_file, device=torch.device(args.device), dtype=dtype,
+            build_states=not args.matrix_free)
+    except ValueError as e:
+        # e.g. a gradient-enhanced (v3) snapshot with --matrix_free
+        return _error(str(e))
+    if is_multifidelity(emu) and args.matrix_free:
+        return _error("multi-fidelity snapshots screen pools through the "
+                      "recursive dense predict (levels are small by "
+                      "construction); drop --matrix_free")
+    if is_sparse(emu) and args.matrix_free:
+        return _error("sparse (SGPR) snapshots already screen pools against "
+                      "the O(m^2) serve state; drop --matrix_free")
+    iter_kwargs = (dict(rank=args.rank, cg_tol=args.cg_tol,
+                        cg_max_iters=args.cg_max_iters)
+                   if args.matrix_free else {})
+    gen = torch.Generator().manual_seed(args.seed)
+    if args.method == "nroy":
+        if args.experiment_file is None:
+            return _error("--method=nroy needs --experiment_file (the "
+                          "observations that define implausibility)")
+        try:
+            y_exp, exp_var = read_experiment_file(args.experiment_file)
+        except ValueError as e:
+            return _error(f"bad experiment file: {e}")
+        if y_exp.shape[0] != len(output_names):
+            return _error(f"experiment file has {y_exp.shape[0]} "
+                          f"observable(s) but the snapshot produces "
+                          f"{len(output_names)}")
+        prop = nroy_wave_design(
+            gen, emu, y_exp, exp_var, n_new=args.n_new,
+            threshold=args.threshold, pool_size=args.pool_size,
+            **iter_kwargs)
+        if not args.quiet:
+            print(f"design: NROY wave, "
+                  f"{100.0 * prop.pool_fraction_viable:.2f}% of the "
+                  f"{args.pool_size}-point pool not ruled out at I <= "
+                  f"{args.threshold:g}", file=sys.stderr)
+            if prop.pool_fraction_viable == 0.0:
+                print("warning: nothing in the pool is viable — the wave "
+                      "has converged or the threshold is tight; proposing "
+                      "least-implausible points instead", file=sys.stderr)
+    else:
+        prop = active_variance_design(gen, emu, n_new=args.n_new,
+                                      pool_size=args.pool_size,
+                                      **iter_kwargs)
+        if not args.quiet:
+            print(f"design: active-variance batch of {args.n_new} from a "
+                  f"{args.pool_size}-point pool", file=sys.stderr)
+    _write_rows(args.output, "# proposed runs: " + " ".join(param_names),
+                prop.points)
+    return 0
+
+
+def _sensitivity_fn(emu):
+    """(predict_fn over the scaled cube -> (m, t) means, d) of any emulator
+    kind a snapshot holds."""
+    from madaiemulator_tpu_torch.models.multifidelity import (
+        MultiFidelityEmulator,
+        MultivariateMultiFidelityEmulator,
+        predict_multifidelity,
+        predict_multivariate_multifidelity,
+    )
+    from madaiemulator_tpu_torch.models.sensitivity import (
+        multivariate_mean_fn,
+    )
+    from madaiemulator_tpu_torch.models.sparse import (
+        is_sparse,
+        predict_multivariate_sparse,
+    )
+    from madaiemulator_tpu_torch.utils.designs import unapply_scaling
+
+    if isinstance(emu, MultivariateMultiFidelityEmulator):
+        def fn(Xs):
+            return predict_multivariate_multifidelity(
+                emu, unapply_scaling(Xs, emu.scaling))[0]
+
+        return fn, emu.levels[0].X.shape[1]
+    if isinstance(emu, MultiFidelityEmulator):
+        def fn(Xs):
+            return predict_multifidelity(
+                emu, unapply_scaling(Xs, emu.scaling))[0][:, None]
+
+        return fn, emu.levels[0].data.X.shape[1]
+    if is_sparse(emu):
+        def fn(Xs):
+            return predict_multivariate_sparse(
+                emu, unapply_scaling(Xs, emu.scaling))[0]
+
+        return fn, emu.Z.shape[1]
+    return multivariate_mean_fn(emu), emu.X.shape[1]
+
+
+def cmd_sensitivity(args) -> int:
+    import torch
+
+    from madaiemulator_tpu_torch.io.snapshot import read_snapshot_auto
+    from madaiemulator_tpu_torch.models.sensitivity import (
+        main_effects,
+        sobol_indices,
+    )
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        return _error("CUDA device not available")
+    dtype = torch.float64 if args.dtype == "float64" else torch.float32
+    dev = torch.device(args.device)
+    emu, param_names, output_names = read_snapshot_auto(
+        args.state_file, device=dev, dtype=dtype)
+    predict_fn, d = _sensitivity_fn(emu)
+    res = sobol_indices(predict_fn, d, torch.Generator().manual_seed(
+        args.seed), n=args.n, query_chunk=args.query_chunk, dtype=dtype,
+        device=dev)
+    first = res.first.cpu().numpy()  # (d,) or (d, t)
+    total = res.total.cpu().numpy()
+    if first.ndim == 1:
+        first, total = first[:, None], total[:, None]
+    if not args.quiet:
+        print(f"sensitivity: Sobol indices from an n={args.n} Saltelli "
+              f"design ({args.n * (d + 2)} emulator evaluations); "
+              f"interactions = total - first", file=sys.stderr)
+        for j, name in enumerate(param_names):
+            print(f"  {name}: max total index {float(np.max(total[j])):.3f} "
+                  f"across {first.shape[1]} observable(s)", file=sys.stderr)
+    dest = sys.stdout if args.output == "-" else open(args.output, "w")
+    try:
+        dest.write("# Sobol indices: param observable first total\n")
+        for j, name in enumerate(param_names):
+            for u, out_name in enumerate(output_names):
+                dest.write(f"{name} {out_name} {first[j, u]:.17g} "
+                           f"{total[j, u]:.17g}\n")
+    finally:
+        if dest is not sys.stdout:
+            dest.close()
+    if args.main_effects is not None:
+        gv, eff = main_effects(
+            predict_fn, d, torch.Generator().manual_seed(args.seed + 1),
+            grid=args.grid, n=args.effects_n, query_chunk=args.query_chunk,
+            dtype=dtype, device=dev)
+        gv, eff = gv.cpu().numpy(), eff.cpu().numpy()
+        if eff.ndim == 2:
+            eff = eff[:, :, None]  # (d, grid, t)
+        cols = " ".join(f"{p}:{o}" for p in param_names for o in output_names)
+        _write_rows(args.main_effects,
+                    "# main effects E[f | x_i = v], x_i scaled to [0,1]: "
+                    f"v {cols}",
+                    ([gv[g], *eff[:, g, :].reshape(-1)]
+                     for g in range(len(gv))))
+        if not args.quiet:
+            print(f"wrote main-effect curves to {args.main_effects}",
+                  file=sys.stderr)
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = _build_parser().parse_args(argv)
     commands = {
@@ -1239,6 +1521,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         "convert": cmd_convert,
         "validate": cmd_validate,
         "calibrate": cmd_calibrate,
+        "design": cmd_design,
+        "sensitivity": cmd_sensitivity,
     }
     try:
         return commands[args.command](args)

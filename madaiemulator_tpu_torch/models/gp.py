@@ -168,6 +168,8 @@ def _cholesky(C: torch.Tensor, config: GPConfig) -> torch.Tensor:
     package takes diag="xla". Both compute the same factor; the port's
     "pallas" spelling means "the Hopper kernels". "left" keeps the JAX
     route exactly (diag="xla"); float64 always takes the library panels.
+    "blocked" above `cholesky_block` is the right-looking
+    `linalg.blocked_cholesky_opt` (library math, as in JAX).
     "auto" is resolved from concrete hyperparameters only by
     `precompute_predictor_safe` (`resolve_update_precision`); here, as in
     the JAX package's traced `_factor`, it means "highest"."""
@@ -185,6 +187,11 @@ def _cholesky(C: torch.Tensor, config: GPConfig) -> torch.Tensor:
         Cp, n0 = linalg.pad_spd(C, config.cholesky_block)
         return linalg.left_cholesky(
             Cp, block=config.cholesky_block, update_precision=upd, diag=diag
+        )[..., :n0, :n0]
+    if method == "blocked" and n > config.cholesky_block:
+        Cp, n0 = linalg.pad_spd(C, config.cholesky_block)
+        return linalg.blocked_cholesky_opt(
+            Cp, block=config.cholesky_block, update_precision=upd
         )[..., :n0, :n0]
     return linalg.xla_cholesky(C)
 

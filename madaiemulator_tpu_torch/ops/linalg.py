@@ -8,10 +8,11 @@ leaves NaN in its factor, `chol_ok` reports it, and callers gate the result.
 `torch.linalg.cholesky_ex` leaves a partly finite factor when it fails, so
 `xla_cholesky` fills the failed batch members with NaN.
 
-Gradients: the kernel factorizations (`pallas_cholesky_diff`, K2) and
-`left_cholesky` are `torch.autograd.Function`s whose backward is the Murray
-formula (`cholesky_backward`) in library math, as in the JAX package, which
-has no backward kernel either; the library factor differentiates natively.
+Gradients: the kernel factorizations (`pallas_cholesky_diff`, K2),
+`left_cholesky` and `blocked_cholesky_opt` are `torch.autograd.Function`s
+whose backward is the Murray formula (`cholesky_backward`) in library math,
+as in the JAX package, which has no backward kernel either; the library
+factor differentiates natively.
 """
 
 from __future__ import annotations
@@ -289,6 +290,162 @@ def tri_inv_block(T: torch.Tensor, base: int = 64,
     out[..., h:, :h] = -matmul_tier(
         invC, matmul_tier(T[..., h:, :h], invA, precision), precision)
     return out
+
+
+def _unblocked_cholesky(A: torch.Tensor) -> torch.Tensor:
+    """Unblocked lower Cholesky of a small (b, b) block (or batch): one
+    column at a time, each a rank-1 update of the columns right of it (the
+    JAX package's diagonal-block fallback). O(b^3), b steps."""
+    b = A.shape[-1]
+    idx = torch.arange(b, device=A.device)
+    L = A.clone()
+    for j in range(b):
+        col = L[..., :, j]
+        colj = torch.where(idx >= j, col / torch.sqrt(col[..., j:j + 1]),
+                           0.0)
+        L = L - torch.where(idx[None, :] > j,
+                            colj[..., :, None] * colj[..., None, :], 0.0)
+        L[..., :, j] = colj
+    return torch.tril(L)
+
+
+def blocked_cholesky_opt(
+    A: torch.Tensor,
+    block: int = 512,
+    update_precision: str = "highest",
+    diag: str = "xla",
+) -> torch.Tensor:
+    """Right-looking blocked lower Cholesky (`cholesky_method="blocked"`),
+    differentiable with the Murray backward. n must be a multiple of
+    `block` (pad with `pad_spd`).
+
+    Per panel k: the diagonal block's factor (diag="xla": the library
+    factor; else `_unblocked_cholesky`), the rows below it (float32:
+    `tri_inv_block` and one GEMM at `update_precision`; float64: the library
+    trsm), then the trailing update on the block-lower triangle only, one
+    GEMM per trailing block column (rows at and below it), at
+    `update_precision` (TIERS). All library math, as in the JAX package
+    (ops/linalg.py:310-393): no kernel serves this route."""
+    if update_precision not in TIERS:
+        raise ValueError(
+            f"blocked_cholesky_opt: unknown precision tier {update_precision!r}")
+    n = A.shape[-1]
+    if n % block:
+        raise ValueError(f"blocked_cholesky_opt: N={n} % {block} != 0")
+    return _MurrayCholesky.apply(A, _blocked_cholesky_impl, block,
+                                 update_precision, diag)
+
+
+def _blocked_cholesky_impl(A: torch.Tensor, block: int, upd: str,
+                           diag: str) -> torch.Tensor:
+    n = A.shape[-1]
+    diag_chol = xla_cholesky if diag == "xla" else _unblocked_cholesky
+    M = A.clone()
+    L = torch.zeros_like(A)
+    for kb in range(0, n, block):
+        Lkk = diag_chol(M[..., kb:kb + block, kb:kb + block])
+        L[..., kb:kb + block, kb:kb + block] = Lkk
+        r0 = kb + block
+        if r0 >= n:
+            break
+        A21 = M[..., r0:, kb:kb + block]
+        if A.dtype == torch.float64:  # L21 Lkk^T = A21
+            L21 = torch.linalg.solve_triangular(Lkk.mT, A21, upper=True,
+                                                left=False)
+        else:
+            L21 = matmul_tier(A21, tri_inv_block(Lkk, precision=upd).mT, upd)
+        L[..., r0:, kb:kb + block] = L21
+        for cj in range(r0, n, block):
+            lo = cj - r0
+            M[..., cj:, cj:cj + block] -= matmul_tier(
+                L21[..., lo:, :], L21[..., lo:lo + block, :].mT, upd)
+    return L
+
+
+def blocked_cholesky(A: torch.Tensor, block: int = 256) -> torch.Tensor:
+    """Right-looking blocked lower Cholesky, the simple form: per panel the
+    unblocked diagonal factor, the library trsm of the rows below, one
+    full-precision GEMM over the whole trailing matrix. n must be a multiple
+    of `block`. Differentiates natively (through every step)."""
+    n = A.shape[-1]
+    if n % block:
+        raise ValueError(f"blocked_cholesky: N={n} not a multiple of {block}")
+    M = A  # the trailing matrix, rows and columns kb: on
+    L = torch.zeros_like(A)
+    for kb in range(0, n, block):
+        Lkk = _unblocked_cholesky(M[..., :block, :block])
+        L[..., kb:kb + block, kb:kb + block] = Lkk
+        if kb + block < n:
+            L21 = torch.linalg.solve_triangular(
+                Lkk.mT, M[..., block:, :block], upper=True, left=False)
+            L[..., kb + block:, kb:kb + block] = L21
+            M = M[..., block:, block:] - L21 @ L21.mT
+    return L
+
+
+def _diag_block_invs(L: torch.Tensor, block: int, tier: str) -> torch.Tensor:
+    """The inverses of L's diagonal (block, block) blocks: (*B, nb, b, b)."""
+    n = L.shape[-1]
+    diags = torch.stack([L[..., i:i + block, i:i + block]
+                         for i in range(0, n, block)], dim=-3)
+    return tri_inv_block(diags, precision=tier)
+
+
+def _precise_solve(L, B, block, tier, upper_t: bool) -> torch.Tensor:
+    vec = B.ndim == L.ndim - 1
+    B2 = B[..., None] if vec else B
+    # the identity tail of `pad_spd` (the JAX package's `_pad_tri`): the
+    # solves are exact on the original rows
+    Lp, n0 = pad_spd(L, block)
+    n = Lp.shape[-1]
+    if n0 < n:
+        B2 = torch.nn.functional.pad(B2, (0, 0, 0, n - n0))
+    nb = n // block
+    invD = _diag_block_invs(Lp, block, tier)
+    xs = [None] * nb
+    order = range(nb - 1, -1, -1) if upper_t else range(nb)
+    for i in order:
+        r0 = i * block
+        rhs = B2[..., r0:r0 + block, :]
+        if upper_t and i < nb - 1:  # (L^T)[block i, below] = L[below, i]^T
+            rhs = rhs - matmul_tier(Lp[..., r0 + block:, r0:r0 + block].mT,
+                                    torch.cat(xs[i + 1:], dim=-2), tier)
+        elif not upper_t and i > 0:
+            rhs = rhs - matmul_tier(Lp[..., r0:r0 + block, :r0],
+                                    torch.cat(xs[:i], dim=-2), tier)
+        Di = invD[..., i, :, :]
+        xs[i] = matmul_tier(Di.mT if upper_t else Di, rhs, tier)
+    X = torch.cat(xs, dim=-2)[..., :n0, :]
+    return X[..., 0] if vec else X
+
+
+def solve_lower_precise(L: torch.Tensor, B: torch.Tensor, block: int = 512,
+                        precision_name: str = "high") -> torch.Tensor:
+    """Solve L x = B by block forward substitution with every product at
+    one precision tier (TIERS): `tri_inv_block` inverses of the diagonal
+    blocks, then a GEMM per block for the update and the apply (JAX
+    ops/linalg.py:502). B is (*B, n) or (*B, n, m)."""
+    return _precise_solve(L, B, block, precision_name, upper_t=False)
+
+
+def solve_upper_t_precise(L: torch.Tensor, B: torch.Tensor, block: int = 512,
+                          precision_name: str = "high") -> torch.Tensor:
+    """Solve L^T x = B (the lower factor, transposed) by block back
+    substitution at one precision tier (JAX ops/linalg.py:537)."""
+    return _precise_solve(L, B, block, precision_name, upper_t=True)
+
+
+def cholesky(A: torch.Tensor, method: str = "xla",
+             block: int = 256) -> torch.Tensor:
+    """The factorization by name: "xla" (the library), "blocked"
+    (`blocked_cholesky`) or "left" (`left_cholesky`)."""
+    if method == "xla":
+        return xla_cholesky(A)
+    if method == "blocked":
+        return blocked_cholesky(A, block=block)
+    if method == "left":
+        return left_cholesky(A, block=block)
+    raise ValueError(f"unknown cholesky method {method!r}")
 
 
 def chol_ok(L: torch.Tensor) -> torch.Tensor:

@@ -75,8 +75,10 @@ class GPConfig:
     (`ops/hopper/panel.py`) on every diagonal panel (the JAX package takes
     library panels there; the factor is the same); "left" is the
     left-looking factorization with library panels, the JAX route exactly
-    (`ops/linalg.left_cholesky`); "xla" is `torch.linalg.cholesky_ex`.
-    "blocked" is not ported and is rejected.
+    (`ops/linalg.left_cholesky`); "blocked" is the right-looking blocked
+    factorization above cholesky_block (`ops/linalg.blocked_cholesky_opt`,
+    library math, as in the JAX package); "xla" is
+    `torch.linalg.cholesky_ex`.
 
     pallas_interpret is accepted so JAX configs carry over; the port ignores
     it (a kernel wrapper runs its plain version for CPU tensors).
@@ -118,12 +120,7 @@ class GPConfig:
             raise ValueError(f"nparams must be >= 1, got {self.nparams}")
         if self.gram_method not in ("xla", "pallas"):
             raise ValueError(f"unknown gram_method {self.gram_method!r}")
-        if self.cholesky_method == "blocked":
-            raise ValueError(
-                "cholesky_method='blocked' is not ported to the PyTorch "
-                "package; use 'left', 'pallas' or 'xla'"
-            )
-        if self.cholesky_method not in ("xla", "left", "pallas"):
+        if self.cholesky_method not in ("xla", "left", "blocked", "pallas"):
             raise ValueError(
                 f"unknown cholesky_method {self.cholesky_method!r}"
             )

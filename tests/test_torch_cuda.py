@@ -886,3 +886,105 @@ def test_calibrate_on_the_card_vs_float64(dev, tmp_path):
     assert (grad[3] == 0).all() and (grad[:3] != 0).any()
     out = cal.run_hmc(g, lp32, x0, 5, n_leapfrog=4)
     assert torch.isfinite(out[1]).all()
+
+
+def test_blocked_cholesky_on_the_card_vs_float64(dev):
+    """cholesky_method="blocked" (library math: the trailing GEMMs at the
+    update tier, float32 trsm by tri_inv_block + GEMM) on the card against
+    the float64 factor of the same float32 SPD matrix (cond ~2), at
+    "highest" and "high"; and its Murray gradient against cholesky_ex's."""
+    from madaiemulator_tpu_torch.ops import linalg
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n = 2048
+    A = torch.randn(n, n, generator=gen, device=dev) / n ** 0.5
+    M = 4.0 * torch.eye(n, device=dev) + A @ A.mT
+    L64 = torch.linalg.cholesky(M.double())
+    for tier, tol in (("highest", 5e-5), ("high", 5e-4)):
+        L = linalg.blocked_cholesky_opt(M, block=512, update_precision=tier)
+        err = (L.double() - L64).abs().max().item() / L64.abs().max().item()
+        print(f"blocked {tier}: {err:.3g} x max|L|")
+        assert err <= tol, (tier, err)
+    W = torch.randn(n, n, generator=gen, device=dev, dtype=torch.float64)
+    grads = []
+    for fn in (lambda X: linalg.blocked_cholesky_opt(X, block=512),
+               torch.linalg.cholesky):
+        X = M.double().requires_grad_(True)
+        (fn(X) * W).sum().backward()
+        grads.append(X.grad)
+    gerr = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
+    assert gerr.item() <= 1e-9, gerr.item()
+
+
+def _card_emulators(dev, n=256, d=4, t=5):
+    """A dense multivariate emulator with fixed thetas at float32 on the
+    card and at float64 on the CPU (the float32 jitter floor on both)."""
+    import dataclasses
+
+    from madaiemulator_tpu_torch.models.multivariate import (
+        emulator_from_numpy,
+        pca_decompose,
+    )
+    from madaiemulator_tpu_torch.ops import kernels
+    from madaiemulator_tpu_torch.utils.config import GPConfig
+
+    rng = np.random.default_rng(5)
+    X = rng.uniform(size=(n, d))
+    Y = np.stack([np.sin(3 * X[:, i % d]) + X[:, (i + 1) % d] ** 2
+                  for i in range(t)], 1)
+    pca, Z = pca_decompose(Y, 0.99)
+    r = Z.shape[1]
+    arrays = dict(mins=np.zeros(d), ranges=np.ones(d), X=X, Z=Z,
+                  ymean=pca.ymean, ystd=pca.ystd,
+                  eigenvalues=pca.eigenvalues, U=pca.U,
+                  log_amp=np.zeros(r), log_nugget=np.full(r, np.log(1e-3)),
+                  log_ls=np.full((r, d), np.log(0.4)))
+    cfg = GPConfig(nparams=d, regression_order=1)
+    cfg = dataclasses.replace(cfg, jitter=kernels.effective_jitter_frac(
+        n, torch.float32, cfg))
+    return (emulator_from_numpy(arrays, cfg, dev, dtype=torch.float32),
+            emulator_from_numpy(arrays, cfg, torch.device("cpu")))
+
+
+def test_design_and_sensitivity_on_the_card(dev):
+    """active_variance_design and sobol_indices over a float32 emulator on
+    the card: one K1 cross covariance per pool and per query chunk, no K2;
+    the points inside the design box; the Sobol indices within 1e-3 of a
+    float64 emulator's on the same (float32) Saltelli draws."""
+    from madaiemulator_tpu_torch.models import design, sensitivity
+
+    e32, e64 = _card_emulators(dev)
+    before = (k1.launches, k2.launches)
+    prop = design.active_variance_design(torch.Generator().manual_seed(0),
+                                         e32, 8, pool_size=1024)
+    assert (k1.launches - before[0], k2.launches - before[1]) == (1, 0)
+    assert prop.points.shape == (8, 4)
+    assert np.all((prop.points >= 0) & (prop.points <= 1))
+    before = k1.launches
+    res32 = sensitivity.sobol_indices(sensitivity.multivariate_mean_fn(e32),
+                                      4, torch.Generator().manual_seed(1),
+                                      n=512, query_chunk=1024)
+    assert k1.launches - before == 3  # 512 x 6 rows in chunks of 1,024
+    res64 = sensitivity.sobol_indices(sensitivity.multivariate_mean_fn(e64),
+                                      4, torch.Generator().manual_seed(1),
+                                      n=512, query_chunk=1024, device="cpu")
+    for a, b in zip(res32[:2], res64[:2]):
+        err = (a.double().cpu() - b).abs().max().item()
+        assert err <= 1e-3, err
+
+
+def test_compat_on_the_card(dev):
+    """tests/test_compat.py's 1-D sin through call_estimate and
+    call_emulate_at_list on the card, at float64 and at float32."""
+    from madaiemulator_tpu_torch import compat
+
+    X = np.linspace(0, 10, 30)[:, None]
+    y = np.sin(X[:, 0])
+    pts = np.linspace(0.5, 9.5, 20)[:, None]
+    for dtype in (None, torch.float32):
+        th = compat.call_estimate(X, y, n_restarts=3, max_steps=40, seed=1,
+                                  dtype=dtype)
+        m, v = compat.call_emulate_at_list(X, y, th, pts, dtype=dtype)
+        rmse = float(np.sqrt(np.mean((m - np.sin(pts[:, 0])) ** 2)))
+        print(f"compat {dtype}: thetas {th}, rmse {rmse:.3g}")
+        assert rmse < 1e-2 and np.all(v >= 0), (dtype, rmse)

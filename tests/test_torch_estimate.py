@@ -457,12 +457,13 @@ UNPORTED = {
         "8"],
 }
 # the cases whose commands are ported now: each checks that it works (the
-# sparse and multi-fidelity fits write their snapshots; print_thetas prints
-# what the JAX CLI prints; convert rewrites the snapshot's bytes, or its
-# .npz key for key as the JAX CLI does)
+# sparse, multi-fidelity and blocked-factor fits write their snapshots;
+# print_thetas prints what the JAX CLI prints; convert rewrites the
+# snapshot's bytes, or its .npz key for key as the JAX CLI does)
 PORTED_NOW = ("inducing", "print_thetas_sgpr", "convert_sgpr",
               "tuning_inducing_opt_steps", "tuning_row_chunk",
-              "multifidelity", "npz_state", "convert_to_npz")
+              "multifidelity", "npz_state", "convert_to_npz",
+              "cholesky_blocked")
 
 
 @pytest.mark.parametrize("what", sorted(UNPORTED))
@@ -479,8 +480,10 @@ def test_unported_exits_2_with_one_line(what, tmp_path, capsys, monkeypatch):
         out = capsys.readouterr().out
         mf = what in ("multifidelity", "npz_state", "convert_to_npz")
         if argv[0] == "estimate_thetas":
+            magic = (tsnap.MAGIC if what == "cholesky_blocked" else
+                     tsnap.MAGIC_MF if mf else tsnap.MAGIC_SGPR)
             assert (tmp_path / "s.txt").read_text().startswith(
-                (tsnap.MAGIC_MF if mf else tsnap.MAGIC_SGPR) + " 1\n")
+                magic + " 1\n")
         elif argv[0] == "print_thetas":
             monkeypatch.setenv("MADAI_COMPILE_CACHE", "off")
             assert jcli.main(argv) == 0

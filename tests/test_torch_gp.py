@@ -139,8 +139,10 @@ def test_effective_jitter_frac_matches_jax(n):
 def test_config_validation_and_defaults():
     c = tcfg.GPConfig(nparams=2)
     assert (c.gram_method, c.cholesky_method) == ("pallas", "pallas")
-    with pytest.raises(ValueError, match="not ported"):
-        tcfg.GPConfig(nparams=2, cholesky_method="blocked")
+    assert tcfg.GPConfig(nparams=2, cholesky_method="blocked"
+                         ).cholesky_method == "blocked"
+    with pytest.raises(ValueError, match="unknown cholesky_method"):
+        tcfg.GPConfig(nparams=2, cholesky_method="cuda")
     with pytest.raises(ValueError):
         tcfg.GPConfig(nparams=2, gram_method="cuda")
     with pytest.raises(ValueError):
