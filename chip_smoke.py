@@ -150,17 +150,17 @@ It imports no jax. Phases, in order; any failure exits non-zero:
                K3 on the cheap level's panels); the per-level LOO; the CLI
                (estimate_thetas on a MULTIFIDELITY model file,
                interactive_mode, validate).
- 14. calibrate — in-process MCMC (models/calibrate.py) on phase 7's
-               snapshot at float32: bench/bench_calibrate.py's run (128
-               walkers x 2,000 emcee steps, y_exp = the simulator at a
-               known theta + 0.05 noise): steps/s, evaluations/s, the busy
-               share of 10 steps, acceptance, R-hat, ESS, the posterior
-               mean against the true theta; pt, rwm and hmc (500 steps
-               each); phase 13's emulator, phase 11's sparse snapshot and
-               phase 10's matrix-free emulator on its serving cache; the
-               float32 log-posterior against float64 at the same walker
-               positions; K1 on one half-move's operands for each emulator
-               kind; the CLI's calibrate with an experiment file.
+ 14. calibrate — in-process MCMC (models/calibrate.py) on phase 7's snapshot at
+               float32: bench/bench_calibrate.py's run (128 walkers x 2,000
+               emcee steps, y_exp = the simulator at a known theta + 0.05
+               noise): steps/s, evaluations/s, the busy share of 10 steps,
+               acceptance, R-hat, ESS, the posterior mean against the true
+               theta; pt and rwm (500 steps each) and hmc (100); phase 13's
+               emulator, phase 11's sparse snapshot and phase 10's matrix-free
+               emulator on its serving cache; the float32 log-posterior against
+               float64 at the same walker positions; K1 on one half-move's
+               operands for each emulator kind; the CLI's calibrate with an
+               experiment file.
  15. design  — sequential design and Sobol sensitivity
                (models/design.py, models/sensitivity.py) on phase 7's
                snapshot at float32: active_variance_design (pool 4,096,
@@ -180,6 +180,23 @@ It imports no jax. Phases, in order; any failure exits non-zero:
                10's CLI snapshot) and sensitivity --main_effects against
                the in-process calls; compat's 1-D sin at float64 and
                float32; times by utils.profiling.timed and profiles.
+ 16. mesh    — the multi-device paths (parallel/, `mesh=`) over a virtual mesh
+               of 4 shards on cuda:0, then over a real mesh of up to 4 cards
+               where two or more are visible (else one line says it did not
+               run), each against the unsharded call on the same data and timed
+               beside it: (a) config 5 (phase 8's data at full width, 10 of its
+               30 L-BFGS steps) by fit_ensemble and predict_ensemble over an
+               (ensemble) mesh, the batched LML value+grad at the fit's params
+               against one batch, the fit's per-member LML against the
+               unsharded fit's; (b) predict_queries_sharded of phase 7's
+               snapshot over 8,192 and 8,190 queries; (c) sharded_gram_matvec
+               at N=65,536 and 65,533 (phase 10's data) and
+               lml_iterative(mesh=) against phase 10's own value+grad; (d)
+               elbo_sharded at phase 11's N=10^6; (e) left_cholesky_sharded of
+               phase 6's Gram against float64; (f) emcee with the walkers
+               sharded on phase 7's snapshot. Float32 (the kernels, counted)
+               and float64 (library math, where float32 rounds apart by more
+               than the tight gates) as the MESH_* constants say.
 
 The launch counters are set to 0 just before each main path (phase 5's
 serve, phase 6's value+grad -> fit -> serve, phase 7's fit_multivariate,
@@ -187,8 +204,9 @@ phase 8's fit_ensemble -> predict_ensemble, and the new paths: phase 5's
 fast serve, phase 6's fast serve and tier runs, phase 9's fit -> serve,
 phase 10's value+grad -> fit -> serve, phase 11's fit -> serve, phase
 12's config 3 / config 4 / matrix-free diagnostics, phase 13's fit ->
-serve, phase 14's emcee chain, phase 6's blocked value+grad and phase 15's
-design and sensitivity calls) and read just after it. Phase 5
+serve, phase 14's emcee chain, phase 6's blocked value+grad, phase 15's
+design and sensitivity calls and each sharded call of phase 16) and read
+just after it. Phase 5
 fails if a kernel of its path never launched, and requires K1 = 2 and K2 =
 1 on its fast path; phase 6 requires K3 to launch
 exactly once per diagonal panel of every factorization the path makes, and
@@ -211,7 +229,14 @@ K1 = 2 x steps + 1 and K2 = K3 = 0 for the emcee chain; phase 6's blocked
 route K1 = 1 and K2 = K3 = 0; phase 15 K1 = one cross covariance a predict
 (a design pool; a query chunk of Sobol or main effects; one a level on the
 multi-fidelity emulator, one a chunk of 1,024 on the matrix-free one) and
-K2 = K3 = 0. It prints the whole run's wall, then one JSON line with
+K2 = K3 = 0; phase 16 the counts derived from its shards: K1 = K2 + S =
+the shards' objective evaluations + 2 S for config 5 over S shards
+(predict: 2 K1 + 1 K2 a shard), K1 = S for a sharded serve, K1 = the
+shards' whole row chunks for a matvec and phase 10's count for the
+sharded value+grad, K1 = 1 + 2 x the shards' row chunks for the sharded
+ELBO, no launch for the sharded factor (library panels, as in JAX) and K1
+= S (2 steps + 1) for the sharded emcee, K2 = K3 = 0 where not named. It
+prints the whole run's wall, then one JSON line with
 each kernel's launches (`launches_by_path`: each path's own count;
 `launches`: config 5's where that path runs the kernel, else config 3's
 fit's, else config 4's, else the serve path's), its error against the plain
@@ -515,9 +540,13 @@ MF_TEXT_SERVE_TOL = 1e-2
 # phase 11's N=10^6 sparse snapshot and phase 10's N=65,536 matrix-free
 # emulator on its serving cache ("precond" variances), CAL_SMALL_W walkers x
 # CAL_SMALL_STEPS each; the CLI's calibrate over phase 7's snapshot
-# (CAL_CLI_STEPS; 500 took 20.3 s with the process start).
+# (CAL_CLI_STEPS; 500 took 20.3 s with the process start). HMC runs
+# CAL_HMC_STEPS: 8 leapfrog value+grads a step made 500 steps 45.1 s on the
+# slowest host seen (11.1 steps/s, an NVIDIA H100 80GB HBM3 at 700 W), so
+# its depth is cut to keep the script inside its time limit.
 CAL_W, CAL_STEPS, CAL_BURN, CAL_NOISE = 128, 2000, 500, 0.05
 CAL_OTHER_STEPS, CAL_SMALL_W, CAL_SMALL_STEPS = 500, 64, 200
+CAL_HMC_STEPS = 100
 CAL_CLI_STEPS = 200
 # The posterior mean of every parameter within CAL_Z_MAX posterior standard
 # deviations of the true theta.
@@ -564,6 +593,48 @@ SOB_TRUTH_ATOL = 1e-3
 ISHIGAMI_N, ISHIGAMI_ATOL = 32768, 0.02
 # compat (tests/test_compat.py:9-20): the served 1-D sin's rmse.
 COMPAT_RMSE = 1e-2
+# The multi-device paths (phase 16) over a virtual mesh of MESH_SHARDS shards
+# on cuda:0 (the counterpart of the JAX tests' 8 virtual CPU devices), then
+# over a real mesh of up to MESH_SHARDS cards where two or more are visible.
+# Each step is held against the unsharded call on the same data. Where
+# float32 rounds apart by more than the tight gates (a batched GEMM, trsm or
+# reduction of another size sums in another order, and the fitted Grams at
+# cond ~1e7 amplify it: measured on an NVIDIA H100 80GB HBM3, 700 W, config
+# 5's value+grad at the fitted params 1.9e-5 relative, config 3's served mean
+# 1.2e-3 of its scale, the ELBO 1.5e-5, and the emcee chains apart after a
+# flipped accept), the tight gate is held at float64 (library math, the same
+# sharding) and the float32 path, whose launches are counted, is held to its
+# phase's float32-vs-float64 gate, its distance from the unsharded float32
+# call printed. Gates: (a) config 5's batched LML value+grad at the fit's
+# params at float64, relative; the float32 fit's per-member best LML is
+# reported against the unsharded fit's from the same starts, its "equal" at
+# MESH_FIT_RTOL; (b) serving at float64 against the unsharded float64 serve,
+# relative to the mean scale and the prior variance, and at float32 against
+# phase 7's float64 reference under phase 7's gates; (c) the matvec relative
+# to max|C V| (bitwise: each shard's 16,384 rows are 8 whole chunks), the
+# float32 value+grad against phase 10's own reading, the value relative, the
+# gradient relative to max|g|; (d) the SGPR value+grad at float64 against
+# unsharded, and at float32 against float64 under phase 11's gates; (e) the
+# sharded factor under phase 6's factor gate; (f) emcee, CAL_W walkers: at
+# float64 over MESH_CAL_F64_STEPS steps, the chains at the JAX test's
+# tolerances (tests/test_calibrate.py:643-644) and the acceptance equal; at
+# float32 over MESH_CAL_STEPS (cut from phase 14's 2,000) for the launches
+# and steps/s.
+MESH_SHARDS = 4
+# Config 5 over the mesh runs MESH_C5_STEPS of its 30 L-BFGS steps (and the
+# unsharded fit it is compared with the same): the shards of a virtual mesh
+# run in turn, each evaluation host-bound at ~20 ms whatever its lanes, so
+# the 30-step fit took 61.7 s on the slowest host seen (NVIDIA H100 80GB
+# HBM3, 700 W), 3.8x the unsharded one.
+MESH_C5_STEPS = 10
+MESH_LML_RTOL, MESH_FIT_RTOL = 1e-6, 1e-4
+MESH_SERVE_TOL = 1e-6
+MESH_MATVEC_RTOL, MESH_MATVEC_COLS = 1e-6, 18
+MESH_ITER_LL_RTOL, MESH_ITER_GRAD_RTOL = 1e-6, 1e-5
+MESH_ELBO_RTOL, MESH_ELBO_GRAD_RTOL = 1e-5, 1e-4
+MESH_FACTOR_BLOCK = 512
+MESH_CAL_STEPS, MESH_CAL_F64_STEPS = 200, 100
+MESH_CHAIN_RTOL, MESH_CHAIN_ATOL = 2e-5, 1e-6
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 rate and FP32 outside the
 # tensor cores (the kernels run full FP32 FFMA; TF32 is off).
 H100_BYTES_PER_S = 3.35e12
@@ -1930,10 +2001,30 @@ def _workdir(work):
 
 
 def _run_cli(args):
-    proc = subprocess.run(
-        [sys.executable, "-m", "madaiemulator_tpu_torch.cli"] + args,
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
-    return proc.returncode, proc.stdout, proc.stderr
+    return _run_clis({"cli": args})["cli"][:3]
+
+
+def _run_clis(runs: dict) -> dict:
+    """The CLI invocations of `runs` ({name: argv}) started together and
+    each waited for: {name: (rc, stdout, stderr, wall seconds)}. A CLI
+    process spends most of its wall starting (12-19 s each on the slowest
+    host seen), so independent ones overlap."""
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "madaiemulator_tpu_torch.cli"] + argv,
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, argv in runs.items()}
+    out = {}
+    try:
+        for name, proc in procs.items():
+            so, se = proc.communicate(timeout=600)
+            out[name] = (proc.returncode, so, se, time.perf_counter() - t0)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
 
 
 def _goldens_estimate(dev) -> None:
@@ -3145,7 +3236,8 @@ def phase_iterative(dev, seed: int, smi: str, work=None) -> tuple:
                   f"{SERVER_TOL}")
     print(f"iterative phase wall {time.perf_counter() - t_phase:.1f} s")
     require(not failed, f"iterative: {len(failed)} checks failed: {failed}")
-    return launches, (k1_err, k1_shapes), res.params
+    return (launches, (k1_err, k1_shapes), res.params,
+            (ll32, g32, vg_k1, vg_wall))
 
 
 def _truth1m(A):
@@ -3922,10 +4014,9 @@ def phase_diagnostics(dev, seed: int, smi: str, work, iter_params) -> tuple:
                                 "--cg_tol", str(I_SERVE_TOL),
                                 "--cg_max_iters", str(I_ITERS)],
     }
-    for name, argv in runs.items():
-        t0 = time.perf_counter()
-        rc, out, err = _run_cli(argv + ["--dtype", "float32", "--device",
-                                        "cuda"])
+    done = _run_clis({name: argv + ["--dtype", "float32", "--device", "cuda"]
+                      for name, argv in runs.items()})
+    for name, (rc, out, err, wall) in done.items():
         lines = out.splitlines()
         summary = dict(ln.split() for ln in lines[1:])
         want_n = (64 if "holdout" in name else n3) * C3_T
@@ -3934,8 +4025,8 @@ def phase_diagnostics(dev, seed: int, smi: str, work, iter_params) -> tuple:
             rows = pathlib.Path(table).read_text().splitlines()
             ok = len(rows) == n3 + 1 and rows[0].startswith(
                 "# per-point LOO: loo_mean_")
-        check(ok, f"CLI validate {name} exit {rc} in "
-              f"{time.perf_counter() - t0:.2f} s (process start included): "
+        check(ok, f"CLI validate {name} exit {rc} in {wall:.2f} s (the "
+              f"three started together, process start included): "
               f"{lines[:1]} {summary}; stderr {err.strip()[-300:]!r}")
     print(f"diagnostics phase wall {time.perf_counter() - t_phase:.1f} s "
           f"({times})")
@@ -4452,19 +4543,20 @@ def phase_calibrate(dev, seed: int, smi: str, work, iter_params,
     for name in ("pt", "rwm", "hmc"):
         run = {"pt": cal.run_parallel_tempering, "rwm": cal.run_rwm,
                "hmc": cal.run_hmc}[name]
-        kw = {} if name == "pt" else {"n_adapt": CAL_OTHER_STEPS // 2}
+        steps = CAL_HMC_STEPS if name == "hmc" else CAL_OTHER_STEPS
+        kw = {} if name == "pt" else {"n_adapt": steps // 2}
         t0 = time.perf_counter()
-        out = run(gen, lp, xl, CAL_OTHER_STEPS, **kw)
+        out = run(gen, lp, xl, steps, **kw)
         torch.cuda.synchronize()
         w_s = time.perf_counter() - t0
         a_s = float(out[2])
-        half = out[0][CAL_OTHER_STEPS // 2:]
+        half = out[0][steps // 2:]
         nat_s = (half.double().cpu().numpy()
                  * emu.scaling.ranges.double().cpu().numpy()
                  + emu.scaling.mins.double().cpu().numpy())
         check(0.0 < a_s < 1.0 and bool(torch.isfinite(out[1][-1]).all()),
-              f"{name}: {CAL_W} walkers x {CAL_OTHER_STEPS} steps in "
-              f"{w_s:.3f} s ({CAL_OTHER_STEPS / w_s:.1f} steps/s), "
+              f"{name}: {CAL_W} walkers x {steps} steps in "
+              f"{w_s:.3f} s ({steps / w_s:.1f} steps/s), "
               f"acceptance {a_s:.3f}"
               + (f", swap rate {float(out[3]):.3f}" if name == "pt" else
                  f", final step {float(out[3]):.4g}")
@@ -4884,31 +4976,41 @@ def phase_design(dev, seed: int, smi: str, work, iter_params,
         profile_once(what, fn, t * 1e3, smi, cell="design")
 
     # the CLI on phase 7's snapshot against the in-process calls (the same
-    # seeds, the port's own draws)
-    def cli(argv, what):
-        t0 = time.perf_counter()
-        rc, _, err = _run_cli(argv + ["--dtype", "float32", "--device",
-                                      "cuda", "--seed", str(seed), "--quiet"])
-        wall = time.perf_counter() - t0
-        check(rc == 0, f"CLI {what} exit {rc} in {wall:.2f} s (process "
-              f"start included); stderr {err.strip()[-300:]!r}")
-        return rc == 0
-
+    # seeds, the port's own draws), the four processes started together
     out = {k: str(c3 / f"{k}.txt") for k in ("variance", "nroy", "sobol",
                                              "effects")}
-    for method, prop, extra in (
-            ("variance", prop_v, []),
-            ("nroy", prop_n, ["--experiment_file", exp, "--threshold",
-                              str(DES_THRESHOLD), "--pool_size",
-                              str(DES_NROY_POOL)])):
-        if cli(["design", state, "--method", method, "--output", out[method]]
-               + extra, f"design --method={method}"):
+    cstate = str(pathlib.Path(work) / "iterative" / "iter_state.txt")
+    ipts = str(c3 / "design_matrix_free.txt")
+    runs = {
+        "design --method=variance": ["design", state, "--method",
+                                     "variance", "--output",
+                                     out["variance"]],
+        "design --method=nroy": [
+            "design", state, "--method", "nroy", "--output", out["nroy"],
+            "--experiment_file", exp, "--threshold", str(DES_THRESHOLD),
+            "--pool_size", str(DES_NROY_POOL)],
+        "sensitivity --main_effects": [
+            "sensitivity", state, "--output", out["sobol"], "--main_effects",
+            out["effects"]],
+        f"design --matrix_free on phase 10's N={I_CLI_N} snapshot": [
+            "design", cstate, "--matrix_free", "--output", ipts],
+    }
+    done = _run_clis({what: argv + ["--dtype", "float32", "--device", "cuda",
+                                    "--seed", str(seed), "--quiet"]
+                      for what, argv in runs.items()})
+    cli_ok = {}
+    for what, (rc, _, err, wall) in done.items():
+        check(rc == 0, f"CLI {what} exit {rc} in {wall:.2f} s (the four "
+              f"started together, process start included); stderr "
+              f"{err.strip()[-300:]!r}")
+        cli_ok[what] = rc == 0
+    for method, prop in (("variance", prop_v), ("nroy", prop_n)):
+        if cli_ok[f"design --method={method}"]:
             rows = np.loadtxt(out[method], ndmin=2)
             check(np.array_equal(rows, prop.points.astype(np.float64)),
                   f"CLI design --method={method}: {rows.shape[0]} rows equal "
                   f"the in-process proposal's")
-    if cli(["sensitivity", state, "--output", out["sobol"], "--main_effects",
-            out["effects"]], "sensitivity --main_effects"):
+    if cli_ok["sensitivity --main_effects"]:
         tab = [ln.split() for ln in open(out["sobol"]) if ln[0] != "#"]
         got = np.array([[float(r[2]), float(r[3])] for r in tab])
         want = np.stack([sob.first.cpu().numpy().reshape(-1),
@@ -4923,10 +5025,7 @@ def phase_design(dev, seed: int, smi: str, work, iter_params,
               f"{me.shape} main-effects table equal the in-process results "
               f"(max diff {np.abs(got - want).max():.3g}, "
               f"{np.abs(me - me_want).max():.3g})")
-    cstate = str(pathlib.Path(work) / "iterative" / "iter_state.txt")
-    ipts = str(c3 / "design_matrix_free.txt")
-    if cli(["design", cstate, "--matrix_free", "--output", ipts],
-           f"design --matrix_free on phase 10's N={I_CLI_N} snapshot"):
+    if cli_ok[f"design --matrix_free on phase 10's N={I_CLI_N} snapshot"]:
         cemu, _, _ = read_snapshot(cstate, device=dev, dtype=torch.float32,
                                    build_states=False)
         rows = np.loadtxt(ipts, ndmin=2)
@@ -4984,6 +5083,595 @@ class _NativeBuild:
         self.thread.join(timeout=60)
 
 
+def _mesh_counts(reset: bool = False) -> dict:
+    """The three kernels' launch counts (set to 0 first when reset)."""
+    from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
+    from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
+    from madaiemulator_tpu_torch.ops.hopper import panel as k3
+
+    if reset:
+        torch.cuda.synchronize()
+        k1.launches = k2.launches = k3.launches = 0
+    return {"pairwise_covariance": k1.launches, "cholesky": k2.launches,
+            "panel_factor": k3.launches}
+
+
+def _vg(f, params):
+    """(value, gradients) of f at params, the gradients by autograd."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in params]
+    v = f(type(params)(*leaves))
+    return v.detach(), torch.autograd.grad(v, leaves)
+
+
+def _mesh_kernel_checks(dev, seen, smi, label, checks) -> None:
+    """Every kernel on the operands a sharded call handed it
+    (`_path_operands`), merged into `checks` by kernel name."""
+    for name, readings in _path_kernel_checks(dev, seen, smi, "mesh",
+                                              f"{label} ").items():
+        checks.setdefault(name, {}).update(readings)
+
+
+def _mesh_ensemble(dev, devices, label, seed, smi, check, checks) -> dict:
+    """Step (a): config 5 (phase 8's data at full width, MESH_C5_STEPS
+    L-BFGS steps) fitted and served over an (ensemble) mesh of the given
+    devices, beside the unsharded fit from the same starts."""
+    from madaiemulator_tpu_torch.models import fit
+    from madaiemulator_tpu_torch.ops import kernels
+    from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
+    from madaiemulator_tpu_torch.parallel import ensemble
+    from madaiemulator_tpu_torch.parallel import mesh as mesh_lib
+    from madaiemulator_tpu_torch.utils.config import GPConfig
+
+    S = len(devices)
+    E, N, d, R, M = C5_E, C5_N, C5_D, C5_R, C5_M
+    X, y, Xs = _c5_data(seed, dev)
+    cfg = GPConfig(nparams=d, regression_order=1, n_restarts=R,
+                   max_opt_steps=MESH_C5_STEPS)
+    mesh = ensemble.make_mesh(devices=devices)
+    _mesh_counts(reset=True)
+    t0 = time.perf_counter()
+    res = ensemble.fit_ensemble(torch.Generator().manual_seed(seed), X, y,
+                                cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mean, var = ensemble.predict_ensemble(res.params, X, y, Xs, cfg,
+                                          mesh=mesh)
+    torch.cuda.synchronize()
+    pred_wall = time.perf_counter() - t0
+    got = _mesh_counts()
+    evals = [s["n_vg_calls"] + s["n_v_calls"] for s in res.stats["shards"]]
+    want = {"pairwise_covariance": sum(evals) + 2 * S,
+            "cholesky": sum(evals) + S, "panel_factor": 0}
+    check(got == want,
+          f"{label} config 5 launches {got} = {want}: each of the {S} "
+          f"shards' {evals} objective evaluations one K1 and one K2, "
+          f"predict 2 K1 + 1 K2 a shard")
+    pred0 = host_ms(lambda: ensemble.predict_ensemble(res.params, X, y, Xs,
+                                                      cfg), iters=3)
+    t0 = time.perf_counter()
+    res0 = ensemble.fit_ensemble(torch.Generator().manual_seed(seed), X, y,
+                                 cfg)
+    torch.cuda.synchronize()
+    wall0 = time.perf_counter() - t0
+    n0 = res0.stats["n_vg_calls"] + res0.stats["n_v_calls"]
+    ll0 = res0.log_likelihood
+    ll1 = res.log_likelihood.to(ll0.device)
+    both = torch.isfinite(ll0) & torch.isfinite(ll1)
+    finite = torch.isfinite(ll1).double().mean().item()
+    equal = ((ll1 - ll0).abs() <= MESH_FIT_RTOL * ll0.abs())[both]
+    bitwise = (ll1 == ll0)[both].double().mean().item()
+    print(f"{label} config 5: E={E} x R={R}, {MESH_C5_STEPS} steps, over "
+          f"{S} shards ({devices[0]}"
+          f"{'' if len(set(devices)) == 1 else ' ...'}), fit "
+          f"{wall:.3f} s (unsharded, the same starts: {wall0:.3f} s), "
+          f"objective evaluations a shard {evals} (unsharded: {n0}); "
+          f"predict {M} a member {pred_wall * 1e3:.3f} ms (unsharded "
+          f"{pred0:.3f} ms); the fit's per-member best LML against the "
+          f"unsharded fit's: finite fraction "
+          f"{finite:.6g}, equal within {MESH_FIT_RTOL} x |LML| "
+          f"{equal.double().mean().item():.6g}, bitwise {bitwise:.6g} "
+          f"(reported, not gated) ({smi})")
+    check(finite >= C5_FINITE and mean.shape == (E, M)
+          and bool(torch.isfinite(mean).all() & torch.isfinite(var).all()),
+          f"{label} config 5: finite fraction {finite:.6g} >= {C5_FINITE}; "
+          f"predictions ({E}, {M}) finite")
+    # one batched LML value+grad at the fit's restart params, the lanes
+    # split over the mesh as the fit split them, against one batch: gated at
+    # float64 (library math; the fitted Grams sit at cond up to ~1e7, where
+    # float32's batched GEMMs of another batch size round apart by far
+    # more than 1e-6), reported at float32 with its bitwise share
+    Xl = X[:, None].expand(E, R, N, d).reshape(E * R, N, d)
+    yl = y[:, None].expand(E, R, N).reshape(E * R, N)
+    pl = kernels.GPParams(*(a.to(dev).reshape((E * R,) + a.shape[2:])
+                            for a in res.restart_params))
+
+    def lane_vg(Xa, ya, p):
+        lo, hi = fit._bounds_arrays(cfg, ya.dtype, Xa.device)
+        vg, _ = fit._lane_objective(Xa, ya, None, cfg, lo, hi,
+                                    fit._new_stats())
+        return vg(fit._flatten_t(fit._params_to_u(p, lo, hi)))
+
+    blocks = mesh_lib.blocks(E * R, S)
+
+    def sharded(Xa, ya, p):
+        parts = mesh.map(
+            devices, lambda dv, b: lane_vg(
+                Xa[b[0]:b[1]].to(dv), ya[b[0]:b[1]].to(dv),
+                kernels.GPParams(*(a[b[0]:b[1]].to(dv) for a in p))),
+            devices, blocks)
+        return (mesh_lib.gather([q[0] for q in parts], dev),
+                mesh_lib.gather([q[1] for q in parts], dev))
+
+    def gaps(Xa, ya, p):
+        v0, g0 = lane_vg(Xa, ya, p)
+        v1, g1 = sharded(Xa, ya, p)
+        ok = torch.isfinite(v0) & torch.isfinite(g0).all(-1)
+        dv = ((v1 - v0).abs() / v0.abs().clamp(min=1.0))[ok].max().item()
+        dg = ((g1 - g0).abs().amax(-1) / g0.abs().amax(-1).clamp(min=1.0)
+              )[ok].max().item()
+        bits = ((v1 == v0) & (g1 == g0).all(-1))[ok].double().mean().item()
+        return dv, dg, bits, int(ok.sum())
+
+    dv32, dg32, bits32, n32 = gaps(Xl, yl, pl)
+    if checks is not None:
+        # K1 and K2 on a shard's operands: the value+grad's (E R / S, N, N)
+        # Grams, predict's (E / S, N, N) Grams and (E / S, N, M) crosses
+        with _path_operands() as seen:
+            sharded(Xl, yl, pl)
+            ensemble.predict_ensemble(res.params, X, y, Xs, cfg, mesh=mesh)
+        _mesh_kernel_checks(dev, seen, smi, label, checks)
+    p64 = kernels.GPParams(*(a.double() for a in pl))
+    dv64, dg64, bits64, n64 = gaps(Xl.double(), yl.double(), p64)
+    t_sh = host_ms(lambda: sharded(Xl, yl, pl), iters=3)
+    t_one = host_ms(lambda: lane_vg(Xl, yl, pl), iters=3)
+    # K2 on the same Grams: 8,192 at once against S blocks
+    A = kernels.gram_matrix(Xl, pl, cfg)
+    L = k2.cholesky(A)
+    Lb = torch.cat([k2.cholesky(A[a:b].contiguous()) for a, b in blocks])
+    k2_bitwise = torch.equal(L.view(torch.int32), Lb.view(torch.int32))
+    del A, L, Lb
+    print(f"{label} config 5: float32 LML value+grad at the fit's params, "
+          f"{S} shards against one batch ({n32} finite lanes): value "
+          f"{dv32:.3g}, gradient {dg32:.3g} relative, bitwise share "
+          f"{bits32:.6g} (reported, not gated); K2 on the "
+          f"({E * R},{N},{N}) Grams in {S} blocks bitwise equal to one "
+          f"batch: {k2_bitwise}; {t_sh:.3f} ms sharded, {t_one:.3f} ms one "
+          f"batch ({smi})")
+    check(n64 == E * R and dv64 <= MESH_LML_RTOL and dg64 <= MESH_LML_RTOL,
+          f"{label} config 5: float64 LML value+grad at the float32 fit's "
+          f"params over {E * R} lanes, {S} shards against one batch: "
+          f"{n64} lanes finite; value {dv64:.3g}, gradient {dg64:.3g} "
+          f"relative <= {MESH_LML_RTOL} (bitwise share {bits64:.6g})")
+    return got
+
+
+def _c3_reference(emu, dev):
+    """Phase 7's float64 reference of a float32 config-3 emulator: the same
+    arrays at float64 with the float32 jitter floor set (library math)."""
+    from madaiemulator_tpu_torch.models.multivariate import (
+        emulator_from_numpy,
+    )
+    from madaiemulator_tpu_torch.ops import kernels
+
+    jit32 = kernels.effective_jitter_frac(emu.X.shape[0], torch.float32,
+                                          emu.config)
+    arrays = dict(
+        mins=emu.scaling.mins, ranges=emu.scaling.ranges, X=emu.X, Z=emu.Z,
+        ymean=emu.pca.ymean, ystd=emu.pca.ystd,
+        eigenvalues=emu.pca.eigenvalues, U=emu.pca.U,
+        log_amp=emu.params.log_amp, log_nugget=emu.params.log_nugget,
+        log_ls=emu.params.log_ls)
+    return emulator_from_numpy(
+        {k: v.double().cpu().numpy() for k, v in arrays.items()},
+        dataclasses.replace(emu.config, jitter=jit32), device=dev,
+        dtype=torch.float64)
+
+
+def _mesh_serve(dev, devices, label, seed, smi, work, check,
+                checks) -> dict:
+    """Step (b): phase 7's config-3 snapshot serving 8,192 and a ragged
+    8,190 queries split over an (ensemble) mesh: at float32 (the kernels,
+    counted) against phase 7's float64 reference under phase 7's serve
+    gates, and at float64 against the unsharded serve."""
+    from madaiemulator_tpu_torch.io.snapshot import read_snapshot
+    from madaiemulator_tpu_torch.models.multivariate import (
+        predict_multivariate,
+    )
+    from madaiemulator_tpu_torch.parallel import ensemble
+
+    S = len(devices)
+    emu, _, _ = read_snapshot(str(pathlib.Path(work) / "config3"
+                                  / "state.txt"),
+                              device=dev, dtype=torch.float32)
+    ref = _c3_reference(emu, dev)
+    rng = np.random.default_rng([seed, 16])
+    lo = emu.scaling.mins.cpu().numpy()
+    span = emu.scaling.ranges.cpu().numpy()
+    q = torch.tensor(lo + span * rng.uniform(size=(8192, lo.size)),
+                     dtype=torch.float32, device=dev)
+    mesh = ensemble.make_mesh(devices=devices)
+    pv = _prior_var(ref)
+    if checks is not None:
+        with _path_operands() as seen:  # K1 on a shard's cross covariance
+            ensemble.predict_queries_sharded(emu, q, mesh=mesh)
+        _mesh_kernel_checks(dev, seen, smi, label, checks)
+    total = None
+    for m in (8192, 8190):
+        _mesh_counts(reset=True)
+        mt, vt = ensemble.predict_queries_sharded(emu, q[:m], mesh=mesh)
+        torch.cuda.synchronize()
+        got = _mesh_counts()
+        total = got if total is None else {k: total[k] + got[k]
+                                           for k in got}
+        m0, v0 = predict_multivariate(emu, q[:m])
+        r64, rv64 = predict_multivariate(ref, q[:m].double())
+        s64, sv64 = ensemble.predict_queries_sharded(ref, q[:m].double(),
+                                                     mesh=mesh)
+        scale = max(1.0, r64.abs().max().item())
+        dm = (mt.double() - r64).abs().max().item() / scale
+        dvv = (vt.double() - rv64).abs().max().item() / pv
+        dm0 = (mt - m0).abs().max().item() / scale
+        dv0 = (vt - v0).abs().max().item() / pv
+        dm64 = (s64 - r64).abs().max().item() / scale
+        dv64 = (sv64 - rv64).abs().max().item() / pv
+        t_sh = host_ms(lambda: ensemble.predict_queries_sharded(
+            emu, q[:m], mesh=mesh), iters=5)
+        t_one = host_ms(lambda: predict_multivariate(emu, q[:m]), iters=5)
+        want = {"pairwise_covariance": S, "cholesky": 0, "panel_factor": 0}
+        check(got == want and mt.shape == (m, emu.n_outputs)
+              and dm <= C3_SERVE_MEAN_TOL and dvv <= SLICE_F32_TOL
+              and dm64 <= MESH_SERVE_TOL and dv64 <= MESH_SERVE_TOL,
+              f"{label} predict_queries_sharded of {m} queries (config 3, "
+              f"N={emu.X.shape[0]}, {emu.n_components} components) over "
+              f"{S} shards: float32 against the float64 reference mean "
+              f"{dm:.3g} x scale <= {C3_SERVE_MEAN_TOL}, var {dvv:.3g} x "
+              f"prior var <= {SLICE_F32_TOL} (phase 7's gates); float64 "
+              f"against the unsharded float64 serve mean {dm64:.3g}, var "
+              f"{dv64:.3g} <= {MESH_SERVE_TOL}; float32 against the "
+              f"unsharded float32 serve (reported) mean {dm0:.3g}, var "
+              f"{dv0:.3g} (bitwise: {torch.equal(mt, m0)}, "
+              f"{torch.equal(vt, v0)}); launches {got} = {want} (one cross "
+              f"covariance a shard); float32 {t_sh:.3f} ms sharded, "
+              f"{t_one:.3f} ms unsharded ({smi})")
+    return total
+
+
+def _mesh_iterative(dev, devices, label, seed, smi, iter_vg, check) -> dict:
+    """Step (c): the row-sharded matrix-free GP at phase 10's width: the
+    matvec at N=65,536 and 65,533, and one value+grad at phase 10's gated
+    settings against phase 10's own reading."""
+    from madaiemulator_tpu_torch.models import iterative
+    from madaiemulator_tpu_torch.ops import kernels
+    from madaiemulator_tpu_torch.parallel import iterative_sharded as its
+    from madaiemulator_tpu_torch.utils.config import GPConfig
+
+    S = len(devices)
+    data, _ = _iter_data(seed, dev)
+    cfg = GPConfig(nparams=I_D, regression_order=1)
+    theta = kernels.GPParams(
+        log_amp=torch.tensor(math.log(I_AMP), device=dev),
+        log_nugget=torch.tensor(math.log(I_NUGGET), device=dev),
+        log_ls=torch.full((I_D,), math.log(I_LS), device=dev))
+    mesh = its.make_rows_mesh(devices=devices)
+    V = torch.randn((I_N, MESH_MATVEC_COLS), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed))
+    for n in (I_N, I_N - 3):
+        Xn, Vn = data.X[:n], V[:n]
+        ref = iterative.gram_matvec(Xn, theta, cfg, Vn, row_chunk=I_ROW_CHUNK)
+        _mesh_counts(reset=True)
+        got = its.sharded_gram_matvec(Xn, theta, cfg, Vn, mesh,
+                                      row_chunk=I_ROW_CHUNK)
+        torch.cuda.synchronize()
+        c = _mesh_counts()
+        blocks = its.row_blocks(n, mesh)
+        tiles = [-(-(r1 - r0) // I_ROW_CHUNK) for _, r0, r1 in blocks]
+        want = {"pairwise_covariance": sum(tiles), "cholesky": 0,
+                "panel_factor": 0}
+        err = ((got - ref).abs().max() / ref.abs().max()).item()
+        t_sh = host_ms(lambda: its.sharded_gram_matvec(
+            Xn, theta, cfg, Vn, mesh, row_chunk=I_ROW_CHUNK), iters=3)
+        t_one = host_ms(lambda: iterative.gram_matvec(
+            Xn, theta, cfg, Vn, row_chunk=I_ROW_CHUNK), iters=3)
+        check(c == want and err <= MESH_MATVEC_RTOL,
+              f"{label} sharded_gram_matvec N={n} d={I_D}, "
+              f"{MESH_MATVEC_COLS} columns, row chunk {I_ROW_CHUNK}, {S} "
+              f"shards of rows {[b[2] - b[1] for b in blocks]}: "
+              f"{err:.3g} x max|CV| <= {MESH_MATVEC_RTOL} (bitwise: "
+              f"{torch.equal(got, ref)}); K1 {c} = {want} ({tiles} tiles a "
+              f"shard); {t_sh:.3f} ms sharded, {t_one:.3f} ms unsharded "
+              f"({smi})")
+        del ref, got
+    del V
+    kw = dict(seed=0, rank=I_RANK, probes=I_PROBES, lanczos_iters=I_LANCZOS,
+              cg_tol=I_TOL, cg_max_iters=I_ITERS, logdet_method="mbcg",
+              row_chunk=I_ROW_CHUNK)
+    _mesh_counts(reset=True)
+    t0 = time.perf_counter()
+    ll, g = _vg(lambda p: iterative.lml_iterative(p, data, cfg, mesh=mesh,
+                                                  **kw), theta)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = _mesh_counts()
+    ll0, g0, k1_0, wall0 = iter_vg
+    gv = torch.cat([a.reshape(-1) for a in g])
+    gv0 = torch.cat([a.reshape(-1) for a in g0])
+    dll = abs(ll.item() - ll0.item()) / abs(ll0.item())
+    dg = ((gv - gv0).abs().max() / gv0.abs().max()).item()
+    want = {"pairwise_covariance": k1_0, "cholesky": 0, "panel_factor": 0}
+    check(c == want and dll <= MESH_ITER_LL_RTOL
+          and dg <= MESH_ITER_GRAD_RTOL,
+          f"{label} lml_iterative(mesh=) value+grad at phase 10's check "
+          f"theta and settings ({I_ITERS} PCG iterations, mBCG, "
+          f"{I_PROBES} probes) against phase 10's reading: ll "
+          f"{ll.item():.8g} vs {ll0.item():.8g}, {dll:.3g} <= "
+          f"{MESH_ITER_LL_RTOL}; gradient {dg:.3g} x max|g| <= "
+          f"{MESH_ITER_GRAD_RTOL}; K1 {c} = {want} (phase 10's count: the "
+          f"row blocks are whole chunks, so a matvec's tiles are the "
+          f"unsharded ones); {wall:.3f} s sharded, {wall0:.3f} s unsharded "
+          f"(phase 10) ({smi})")
+    return c
+
+
+def _mesh_sparse(dev, devices, label, seed, smi, check) -> dict:
+    """Step (d): SGPR at phase 11's width, elbo_sharded value+grad over a
+    rows mesh against elbo."""
+    from madaiemulator_tpu_torch.models import sparse
+    from madaiemulator_tpu_torch.models.gp import GPData
+    from madaiemulator_tpu_torch.ops import kernels
+    from madaiemulator_tpu_torch.parallel import sparse_sharded
+    from madaiemulator_tpu_torch.utils.config import GPConfig
+
+    S = len(devices)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.rand((S_N, S_D), generator=gen, device=dev)
+    y = _truth1m(X) + S_NOISE * torch.randn(S_N, generator=gen, device=dev)
+    data = GPData(X=X, y=y)
+    Z = sparse.select_inducing(X, S_M)
+    cfg = GPConfig(nparams=S_D, regression_order=1)
+    theta = kernels.GPParams(
+        log_amp=torch.tensor(math.log(S_AMP), device=dev),
+        log_nugget=torch.tensor(math.log(S_NUGGET), device=dev),
+        log_ls=torch.full((S_D,), math.log(S_LS), device=dev))
+    mesh = sparse_sharded.make_rows_mesh(devices=devices)
+    one = lambda p: sparse.elbo(p, data, cfg, Z, row_chunk=S_ROW_CHUNK)
+    sh = lambda p: sparse_sharded.elbo_sharded(p, data, cfg, Z, mesh,
+                                               row_chunk=S_ROW_CHUNK)
+    ll0, g0 = _vg(one, theta)
+    _mesh_counts(reset=True)
+    ll, g = _vg(sh, theta)
+    torch.cuda.synchronize()
+    c = _mesh_counts()
+    rows = S_N // S
+    chunks = S * -(-rows // S_ROW_CHUNK)
+    want = {"pairwise_covariance": 1 + 2 * chunks, "cholesky": 0,
+            "panel_factor": 0}
+    t_sh = host_ms(lambda: _vg(sh, theta), iters=3)
+    t_one = host_ms(lambda: _vg(one, theta), iters=3)
+    # float64 (library math): sharded against unsharded, the same Z
+    d64 = GPData(X=X.double(), y=y.double())
+    th64 = kernels.GPParams(*(t.double() for t in theta))
+    Z64 = Z.double()
+    l64, h64 = _vg(lambda p: sparse.elbo(p, d64, cfg, Z64,
+                                         row_chunk=S_ROW_CHUNK), th64)
+    s64, k64 = _vg(lambda p: sparse_sharded.elbo_sharded(
+        p, d64, cfg, Z64, mesh, row_chunk=S_ROW_CHUNK), th64)
+    del d64
+
+    def gap(a, b, ga, gb):
+        va = torch.cat([t.double().reshape(-1) for t in ga])
+        vb = torch.cat([t.double().reshape(-1) for t in gb])
+        return (abs(a.item() - b.item()),
+                ((va - vb).abs().max() / vb.abs().max()).item())
+
+    d32, g32 = gap(ll, ll0, g, g0)
+    dsh, gsh = gap(ll, l64, g, h64)
+    d64_, g64_ = gap(s64, l64, k64, h64)
+    check(c == want and dsh / S_N <= S_LL_PER_POINT and gsh <= S_GRAD_RTOL
+          and d64_ / abs(l64.item()) <= MESH_ELBO_RTOL
+          and g64_ <= MESH_ELBO_GRAD_RTOL,
+          f"{label} elbo_sharded value+grad, N={S_N} d={S_D} m={S_M} over "
+          f"{S} shards of {rows} rows (row chunks of {S_ROW_CHUNK}): "
+          f"float32 against float64 {dsh / S_N:.3g} nats a point <= "
+          f"{S_LL_PER_POINT}, gradient {gsh:.3g} x max|g64| <= "
+          f"{S_GRAD_RTOL} (phase 11's gates); float64 against the "
+          f"unsharded float64 value {d64_ / abs(l64.item()):.3g} <= "
+          f"{MESH_ELBO_RTOL}, gradient {g64_:.3g} <= {MESH_ELBO_GRAD_RTOL}; "
+          f"float32 against the unsharded float32 (reported) ll "
+          f"{ll.item():.8g} vs {ll0.item():.8g}, {d32 / abs(ll0.item()):.3g}"
+          f" relative, gradient {g32:.3g} x max|g|; K1 {c} = {want} (k(Z, "
+          f"Z) once, each of the {chunks} row chunks forward and in its "
+          f"checkpoint recompute); float32 {t_sh:.3f} ms sharded, "
+          f"{t_one:.3f} ms unsharded ({smi})")
+    return c
+
+
+def _mesh_factor(dev, devices, label, seed, smi, check) -> dict:
+    """Step (e): left_cholesky_sharded of phase 6's Gram (N=16,384) against
+    float64, beside left_cholesky on the library and the K3 panel
+    routes."""
+    from madaiemulator_tpu_torch.ops import kernels, linalg
+    from madaiemulator_tpu_torch.parallel import iterative_sharded as its
+    from madaiemulator_tpu_torch.utils.config import GPConfig
+
+    S = len(devices)
+    data, _ = _c4_data(seed, dev)
+    cfg = GPConfig(nparams=C4_D, regression_order=1, cholesky_block=512)
+    cfg = dataclasses.replace(cfg, jitter=kernels.effective_jitter_frac(
+        C4_N, torch.float32, cfg))
+    theta = kernels.GPParams(
+        log_amp=torch.zeros((), device=dev),
+        log_nugget=torch.log(torch.tensor(1e-2, device=dev)),
+        log_ls=torch.log(torch.full((C4_D,), 0.5, device=dev)))
+    C = kernels.gram_matrix(data.X, theta, cfg)
+    L64 = torch.linalg.cholesky(C.double())
+    mesh = its.make_rows_mesh(devices=devices)
+    b = MESH_FACTOR_BLOCK
+    _mesh_counts(reset=True)
+    Ls = linalg.left_cholesky_sharded(C, mesh, block=b)
+    torch.cuda.synchronize()
+    c = _mesh_counts()
+    scale = L64.abs().max().item()
+    e = (Ls.double() - L64).abs().max().item() / scale
+    del L64
+    Lx = linalg.left_cholesky(C, block=b, diag="xla")
+    dx = (Ls - Lx).abs().max().item() / scale
+    same = torch.equal(Ls, Lx)
+    del Ls, Lx
+    t_sh = host_ms(lambda: linalg.left_cholesky_sharded(C, mesh, block=b),
+                   iters=2)
+    t_x = host_ms(lambda: linalg.left_cholesky(C, block=b, diag="xla"),
+                  iters=2)
+    t_k3 = host_ms(lambda: linalg.left_cholesky(C, block=b, diag="pallas"),
+                   iters=2)
+    want = {"pairwise_covariance": 0, "cholesky": 0, "panel_factor": 0}
+    check(c == want and e <= C4_GRAM_FACTOR_RTOL,
+          f"{label} left_cholesky_sharded N={C4_N}, block {b}, 'highest', "
+          f"{S} shards of {C4_N // S} rows, on phase 6's Gram: {e:.3g} x "
+          f"max|L| from float64 <= {C4_GRAM_FACTOR_RTOL}; from "
+          f"left_cholesky(diag='xla') {dx:.3g} x max|L| (bitwise: {same}); "
+          f"launches {c} = {want} (library panels, as in JAX); "
+          f"{t_sh:.2f} ms sharded, {t_x:.2f} ms diag='xla', {t_k3:.2f} ms "
+          f"the K3 route ({smi})")
+    del C
+    return c
+
+
+def _mesh_walkers(dev, devices, label, seed, smi, work, check,
+                  checks) -> dict:
+    """Step (f): emcee on phase 7's snapshot (phase 14's experiment), the
+    walker axis over a mesh, against the unsharded chain from the same
+    generator seed: at float32 (the kernels, counted, CAL_W x
+    MESH_CAL_STEPS), and at float64 (CAL_W x MESH_CAL_F64_STEPS), where the
+    chains are gated equal."""
+    from madaiemulator_tpu_torch.io.snapshot import read_snapshot
+    from madaiemulator_tpu_torch.models import calibrate as cal
+    from madaiemulator_tpu_torch.parallel.mesh import Mesh
+
+    S = len(devices)
+    X, _, f = _heavy_ion_like(np.random.default_rng(seed), C3_N, C3_D, C3_T,
+                              with_simulator=True)
+    crng = np.random.default_rng([seed, 14])
+    y_exp = f(X[7][None])[0] + CAL_NOISE * crng.standard_normal(C3_T)
+    mesh = Mesh(devices, ("walkers",))
+    runs = {}
+    for dtype, steps in ((torch.float32, MESH_CAL_STEPS),
+                         (torch.float64, MESH_CAL_F64_STEPS)):
+        emu, _, _ = read_snapshot(str(pathlib.Path(work) / "config3"
+                                      / "state.txt"),
+                                  device=dev, dtype=dtype)
+        lp = cal.make_log_posterior(emu, y_exp,
+                                    np.full(C3_T, CAL_NOISE ** 2))
+        x0 = cal.init_walkers(torch.Generator(device=dev).manual_seed(seed),
+                              emu, lp, CAL_W)
+        chain_gen = lambda: torch.Generator(device=dev).manual_seed(seed + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c0, l0, a0 = cal.run_emcee(chain_gen(), lp, x0, steps)
+        torch.cuda.synchronize()
+        wall0 = time.perf_counter() - t0
+        _mesh_counts(reset=True)
+        t0 = time.perf_counter()
+        c1, l1, a1 = cal.run_emcee(chain_gen(), lp, x0, steps, mesh=mesh)
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        counts = _mesh_counts()
+        diff = (c1 - c0).abs().amax(dim=(1, 2))
+        apart = torch.nonzero(diff > 0)
+        first = int(apart[0]) if len(apart) else None
+        if checks is not None and dtype == torch.float32:
+            # K1 on a shard's cross covariance of one half-move
+            with _path_operands() as seen:
+                cal._shard_walkers(lp, mesh)(c1[-1, :CAL_W // 2])
+            _mesh_kernel_checks(dev, seen, smi, label, checks)
+        runs[dtype] = dict(counts=counts, steps=steps, wall0=wall0,
+                           wall1=wall1, a0=float(a0), a1=float(a1),
+                           worst=diff.max().item(), first=first,
+                           close=bool(torch.allclose(
+                               c1, c0, rtol=MESH_CHAIN_RTOL,
+                               atol=MESH_CHAIN_ATOL)),
+                           finite=bool(torch.isfinite(l1[-1]).all()))
+    r32, r64 = runs[torch.float32], runs[torch.float64]
+    want = {"pairwise_covariance": S * (2 * MESH_CAL_STEPS + 1),
+            "cholesky": 0, "panel_factor": 0}
+    check(r32["counts"] == want and r32["finite"] and 0 < r32["a1"] < 1,
+          f"{label} emcee {CAL_W} walkers x {MESH_CAL_STEPS} steps on "
+          f"config 3 at float32, the walkers over {S} shards: every walker "
+          f"finite, acceptance {r32['a1']:.6f}; K1 {r32['counts']} = {want} "
+          f"(a shard's cross covariance each half-move, and the start); "
+          f"against the unsharded chain from the same seed (reported: the "
+          f"float32 log-posteriors of other batch widths round apart, and "
+          f"one flipped accept moves the chain): first step apart "
+          f"{r32['first']}, max |chain diff| {r32['worst']:.3g}, acceptance "
+          f"{r32['a0']:.6f}; {r32['steps'] / r32['wall1']:.1f} steps/s "
+          f"sharded, {r32['steps'] / r32['wall0']:.1f} unsharded ({smi})")
+    check(r64["close"] and r64["a1"] == r64["a0"] and r64["finite"],
+          f"{label} emcee {CAL_W} walkers x {MESH_CAL_F64_STEPS} steps on "
+          f"config 3 at float64, the walkers over {S} shards, against the "
+          f"unsharded chain: max |chain diff| {r64['worst']:.3g} within "
+          f"rtol {MESH_CHAIN_RTOL} / atol {MESH_CHAIN_ATOL} (first step "
+          f"apart {r64['first']}); acceptance {r64['a1']:.6f} = "
+          f"{r64['a0']:.6f}; {r64['steps'] / r64['wall1']:.1f} steps/s "
+          f"sharded, {r64['steps'] / r64['wall0']:.1f} unsharded ({smi})")
+    return r32["counts"]
+
+
+def phase_mesh(dev, seed: int, smi: str, work, iter_vg) -> tuple:
+    """The multi-device paths (parallel/, `mesh=`): each step over a
+    virtual mesh of MESH_SHARDS shards on cuda:0, then over a real mesh of
+    up to MESH_SHARDS cards where two or more are visible; each against
+    the unsharded call, timed beside it, its launches set to 0 just before
+    the sharded path and read just after and required to equal the count
+    derived from the shards. K1 and K2 are held against their plain
+    versions on the operands the virtual mesh's shards hand them (config
+    5's shard Grams, predict's, the serve's and a half-move's crosses; the
+    matvec's tiles and SGPR's chunks are phases 10's and 11's shapes).
+    Every check is made and printed; the phase fails at its end if any did
+    not pass. Returns (paths, {kernel name: {label: reading}})."""
+    t_phase = time.perf_counter()
+    failed = []
+
+    def check(ok: bool, what: str) -> None:
+        print(f"mesh check {'ok' if ok else 'FAILED'}: {what}")
+        if not ok:
+            failed.append(what)
+
+    meshes = [("mesh", [dev] * MESH_SHARDS)]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        real = [torch.device("cuda", i)
+                for i in range(min(n_cards, MESH_SHARDS))]
+        meshes.append((f"mesh{len(real)}cards", real))
+    else:
+        print(f"mesh: the real mesh did not run: {n_cards} CUDA device "
+              f"visible (it runs over up to {MESH_SHARDS} cards where 2 or "
+              f"more are)")
+    paths, checks = {}, {}
+    for label, devices in meshes:
+        t0 = time.perf_counter()
+        kc = checks if label == "mesh" else None
+        paths[f"{label}_config5"] = _mesh_ensemble(dev, devices, label, seed,
+                                                   smi, check, kc)
+        paths[f"{label}_serve"] = _mesh_serve(dev, devices, label, seed, smi,
+                                              work, check, kc)
+        paths[f"{label}_iterative"] = _mesh_iterative(
+            dev, devices, label, seed, smi, iter_vg, check)
+        paths[f"{label}_sparse"] = _mesh_sparse(dev, devices, label, seed,
+                                                smi, check)
+        paths[f"{label}_factor"] = _mesh_factor(dev, devices, label, seed,
+                                                smi, check)
+        paths[f"{label}_calibrate"] = _mesh_walkers(dev, devices, label,
+                                                    seed, smi, work, check,
+                                                    kc)
+        torch.cuda.empty_cache()
+        print(f"{label}: {len(devices)} shards on "
+              f"{sorted({str(d) for d in devices})} in "
+              f"{time.perf_counter() - t0:.1f} s")
+    print(f"mesh phase wall {time.perf_counter() - t_phase:.1f} s")
+    require(not failed, f"mesh: {len(failed)} checks failed: {failed}")
+    return paths, checks
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5022,7 +5710,7 @@ def _run_phases(args, dev, rng, work, smi, native, t_start) -> int:
                                                  work / "config3")
     paths["config5"], c5 = phase_config5(dev, args.seed, smi)
     paths["gradient"], k3_grad = phase_gradient(dev, args.seed, smi)
-    paths["iterative"], k1_iter, iter_params = phase_iterative(
+    paths["iterative"], k1_iter, iter_params, iter_vg = phase_iterative(
         dev, args.seed, smi, work / "iterative")
     paths["sparse"], k1_sparse = phase_sparse(dev, args.seed, smi, work)
     diag_paths, k23_diag = phase_diagnostics(dev, args.seed, smi, work,
@@ -5036,6 +5724,9 @@ def _run_phases(args, dev, rng, work, smi, native, t_start) -> int:
                                          iter_params, mf_emu)
     paths.update(des_paths)
     del mf_emu
+    mesh_paths, mesh_checks = phase_mesh(dev, args.seed, smi, work, iter_vg)
+    paths.update(mesh_paths)
+    del iter_vg
     for k in kernels:
         by_path = {p: c.get(k["name"], 0) for p, c in paths.items()}
         k["launches_by_path"] = by_path
@@ -5068,7 +5759,8 @@ def _run_phases(args, dev, rng, work, smi, native, t_start) -> int:
                 k["diagnostics"] = {label: reading}
         for cell, checks in (("multifidelity", mf_checks),
                              ("calibrate", cal_checks),
-                             ("design", des_checks)):
+                             ("design", des_checks),
+                             ("mesh", mesh_checks)):
             # every shape each new path handed the kernel; K2 and K3 at
             # fitted thetas are gated by their backward errors, as above
             readings = checks.get(k["name"], {})

@@ -17,8 +17,10 @@ validation diagnostics, in-process MCMC calibration and history matching
 (`models.calibrate`), sequential design (`models.design`), Sobol
 sensitivity (`models.sensitivity`), the R-binding array API (`compat`),
 profiling (`utils.profiling`), every snapshot grammar (text and .npz) and
-the `interactive_emulator_torch` CLI. Multi-device paths (a `mesh`) are not
-ported.
+the `interactive_emulator_torch` CLI, and the multi-device paths over a
+device mesh (`parallel/`: the ensemble, sharded serving, the row-sharded
+matrix-free GP, data-parallel SGPR, the row-sharded factor
+`ops.linalg.left_cholesky_sharded` and walker sharding).
 
 The three TPU kernels are hand-written CUDA for sm_90a under `ops/hopper/`
 + `csrc/`, built by nvcc at first use (never at import):

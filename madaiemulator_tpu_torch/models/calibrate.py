@@ -26,8 +26,19 @@ draw site through its own small private helper (`_stretch_uniform`,
 `_step_jitter`, `_pt_jitter_normal`, `_swap_uniform`, `_seed_subset`,
 `_seed_pick`, `_seed_normal`, `_extra_normal`). The JAX package draws from
 jax.random, so the chains differ between the packages by design; the tests
-inject JAX's draws through these helpers. A device `mesh` (walker sharding
-over several chips) is not ported and raises NotImplementedError.
+inject JAX's draws through these helpers.
+
+Every sampler takes a device `mesh` (`parallel.mesh.Mesh`): each step draws
+its random numbers for the whole walker batch, as without one, and only
+then splits the walkers over the mesh axis (`_shard_walkers`), each shard's
+log-posterior evaluated on its device against a replica of the emulator's
+serve states made once per distinct device (`make_log_posterior`'s
+`on_device`); the values are gathered back on the chain's device, where
+the stretch move's partner lookup and the accepts run. So a sharded chain
+makes the unsharded chain's draws and moves; it equals that chain as far
+as the log-posterior of a shard equals that of the whole batch (to the
+rounding of the emulator's solves at another batch width: at float32 one
+flipped accept then moves the chain apart).
 """
 
 from __future__ import annotations
@@ -41,6 +52,12 @@ import torch
 from madaiemulator_tpu_torch.models.multivariate import (
     _predict_components,
     reconstruct_observables,
+)
+from madaiemulator_tpu_torch.parallel.mesh import (
+    check_mesh,
+    gather,
+    replicate,
+    split,
 )
 from madaiemulator_tpu_torch.utils.designs import unapply_scaling
 
@@ -79,11 +96,47 @@ def _design_points(emu) -> torch.Tensor:
     return emu.X
 
 
-def _shard_walkers(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh (the walker axis sharded over devices) is not "
-            "ported: the port runs on one device")
+def _shard_walkers(log_post, mesh, axis_name=None, axis=0):
+    """The walker-batch evaluation of `log_post`: x (..., d) with its
+    walker axis at `axis` (0 for (W, d); 1 for parallel tempering's
+    (K, W, d)) -> (...). With a mesh, the walkers split into contiguous
+    blocks over the devices of its `axis_name` axis (default the first),
+    each block evaluated on its device by the log-posterior's replica
+    there, the values gathered back on x's device."""
+    def flat(lp, x):
+        return lp(x) if x.ndim == 2 else lp(
+            x.reshape(-1, x.shape[-1])).reshape(x.shape[:-1])
+
+    check_mesh(mesh, "the sampler")
+    if mesh is None:
+        return lambda x: flat(log_post, x)
+    devs = mesh.axis_devices(axis_name or mesh.axis_names[0])
+    replicas = {}
+
+    def replica(dev):
+        if dev not in replicas:
+            on = getattr(log_post, "on_device", None)
+            if on is None:
+                raise ValueError(
+                    "a walker mesh needs a log-posterior from "
+                    "make_log_posterior (its serve states are replicated "
+                    "on every device of the mesh)")
+            replicas[dev] = on(dev)
+        return replicas[dev]
+
+    def evaluate(x):
+        if all(d == x.device for d in devs):
+            lps = [log_post] * len(devs)  # a virtual mesh: no replica
+        else:
+            lps = [replica(d) for d in devs]
+        shards = split(x, len(devs), dim=axis)
+        jobs = [(d, lp, xs.to(d)) for d, lp, xs in zip(devs, lps, shards)
+                if xs.shape[axis]]
+        parts = mesh.map([j[0] for j in jobs],
+                         lambda d, lp, xs: flat(lp, xs), *zip(*jobs))
+        return gather(parts, x.device, dim=axis)
+
+    return evaluate
 
 
 class CalibrationResult(NamedTuple):
@@ -308,6 +361,26 @@ def make_log_posterior(
         out = torch.where(inbox, ll, -torch.inf)
         return out if theta_scaled.ndim > 1 else out[0]
 
+    replicas = {}
+
+    def on_device(device):
+        """This log-posterior with the emulator's serve states (and
+        `states`) copied to `device`, made once a device: what a walker
+        mesh evaluates its shards with."""
+        device = torch.device(device)
+        if device == dev:
+            return log_post
+        if device not in replicas:
+            replicas[device] = make_log_posterior(
+                replicate(emu, device), y_exp, exp_cov, log_prior=log_prior,
+                discrepancy=discrepancy,
+                discrepancy_prior=discrepancy_prior,
+                states=replicate(states, device),
+                variance_method=variance_method, query_chunk=query_chunk,
+                row_chunk=row_chunk)
+        return replicas[device]
+
+    log_post.on_device = on_device
     return log_post
 
 
@@ -441,8 +514,11 @@ def run_emcee(
     """Affine-invariant ensemble sampler: (chain (n_steps, W, d), logp
     (n_steps, W), acceptance ()), in x0's coordinates (scaled space for
     emulator posteriors). W must be even and >= 2 d + 2. Each step is two
-    batched log-posterior evaluations, one a half-move."""
-    _shard_walkers(mesh)
+    batched log-posterior evaluations, one a half-move. `mesh` splits
+    each evaluation's walkers over the devices of its `axis_name` axis
+    (`_shard_walkers`), with the unsharded chain's draws (see the module
+    docstring)."""
+    log_post = _shard_walkers(log_post, mesh, axis_name)
     w, d = x0.shape
     if w % 2 or w < 4:
         raise ValueError(f"n_walkers must be even and >= 4, got {w}")
@@ -489,8 +565,9 @@ def run_rwm(
     """Adaptive random-walk Metropolis: (chain, logp, acceptance,
     final_step). Walkers are independent chains sharing one proposal
     scale, adapted from their pooled acceptance during the first n_adapt
-    steps (default half the run; `calibrate` passes its burn_in)."""
-    _shard_walkers(mesh)
+    steps (default half the run; `calibrate` passes its burn_in). `mesh`
+    shards the walkers as in `run_emcee`."""
+    log_post = _shard_walkers(log_post, mesh, axis_name)
     if n_adapt is None:
         n_adapt = n_steps // 2
     xs, lps, accs = _chain_buffers(n_steps, x0)
@@ -550,8 +627,9 @@ def run_hmc(
     the variance estimate (geometric mean 1, floored) and the second half
     re-tunes the step size for it. The step size adapts by Robbins-Monro
     toward target_acceptance during the first n_adapt steps (default half
-    the run), jittered +-20% each step."""
-    _shard_walkers(mesh)
+    the run), jittered +-20% each step. `mesh` shards the walkers as in
+    `run_emcee` (the gradients flow back through the shards)."""
+    log_post = _shard_walkers(log_post, mesh, axis_name)
     if n_adapt is None:
         n_adapt = n_steps // 2
     if n_leapfrog < 1:
@@ -598,15 +676,17 @@ def run_hmc(
 
 def _pt_stretch_half(generator, log_post, movers, movers_lp, others, betas,
                      a: float):
-    """Tempered stretch move of one half of every rung, one flat predict
-    over the rungs: movers / others (K, half, d), movers_lp (K, half)."""
+    """Tempered stretch move of one half of every rung, one evaluation over
+    the rungs: movers / others (K, half, d), movers_lp (K, half); log_post
+    is the walker evaluation of `_shard_walkers` ((K, half, d) -> (K,
+    half))."""
     k_rungs, half, d = movers.shape
     u = _stretch_uniform(generator, (k_rungs, half), movers)
     z = (u * (a - 1.0) + 1.0) ** 2 / a
     pick = _partner_pick(generator, half, (k_rungs, half), movers.device)
     partners = torch.gather(others, 1, pick[..., None].expand(-1, -1, d))
     prop = partners + z[..., None] * (movers - partners)
-    lp_prop = log_post(prop.reshape(-1, d)).reshape(k_rungs, half)
+    lp_prop = log_post(prop)
     log_u = torch.log(_accept_uniform(generator, (k_rungs, half), lp_prop))
     ratio = (d - 1) * torch.log(z) + betas[:, None] * (lp_prop - movers_lp)
     ratio = torch.where(torch.isneginf(movers_lp) & torch.isfinite(lp_prop),
@@ -636,8 +716,9 @@ def run_parallel_tempering(
     turn. x0 is the (W, d) cold start; the hotter rungs start at x0 plus
     Gaussian jitter of scale init_spread. Returns (cold chain (n_steps, W,
     d), cold logp, cold in-rung acceptance, swap acceptance); each step
-    is two batched evaluations over all K W walkers."""
-    _shard_walkers(mesh)
+    is two batched evaluations over all K W walkers. `mesh` shards the
+    walker axis (axis 1 of the (K, W, d) rungs) as in `run_emcee`."""
+    log_post = _shard_walkers(log_post, mesh, axis_name, axis=1)
     w, d = x0.shape
     if w % 2 or w < max(4, 2 * d + 2):
         raise ValueError(
@@ -650,7 +731,7 @@ def run_parallel_tempering(
     jit0 = _pt_jitter_normal(generator, (n_rungs - 1, w, d), x0) * init_spread
     x = torch.cat([x0[None], x0[None] + jit0])  # (K, W, d)
     half = w // 2
-    lp = log_post(x.reshape(-1, d)).reshape(n_rungs, w)  # untempered
+    lp = log_post(x)  # (K, W), untempered
     xs, lps, accs = _chain_buffers(n_steps, x0)
     swaps = torch.empty((n_steps,), dtype=dtype, device=dev)
     delta_beta = (betas[:-1] - betas[1:])[:, None]  # (K-1, 1)
@@ -820,12 +901,14 @@ def calibrate(
     model-discrepancy scale (its draws in result.discrepancy).
     `generator` (on the emulator's device) gives the walker starts' draws,
     then the sampler's. rwm and hmc adapt during burn-in only.
+    `mesh=` in sampler_kwargs shards the walker axis over its devices (every
+    sampler takes it), with the unsharded chain's draws.
 
     A matrix-free emulator builds its serving cache once
     (precompute_iterative_multivariate with precompute_kwargs: rank,
     cg_tol, cg_max_iters, row_chunk), or reuses `states`; each evaluation
     then takes variance_method's variance. sampler_kwargs go to the
-    sampler; a `mesh` raises NotImplementedError (one device).
+    sampler.
     """
     runs = {"emcee": run_emcee, "pt": run_parallel_tempering,
             "rwm": run_rwm, "hmc": run_hmc}

@@ -21,6 +21,11 @@ O(N (d + rank + probes)) plus one tile. On that matvec:
   * `precompute_iterative_predictor` / `predict_iterative_from_state`: the
     serving cache and chunked serving.
 
+With a `mesh` (`parallel.iterative_sharded.make_rows_mesh`), every
+training matvec of the likelihood, its backward and the serving
+precompute runs row-sharded over the mesh's devices
+(`parallel/iterative_sharded.py`), the multi-device large-N fit.
+
 Probe vectors are drawn by `_draw_probes` from a `torch.Generator` seeded
 from `seed` and the probe stream. The JAX package draws from jax.random, so
 stochastic estimates differ between the packages by design; with
@@ -38,6 +43,7 @@ import torch
 from madaiemulator_tpu_torch.models.gp import GPData, regression_basis
 from madaiemulator_tpu_torch.ops import kernels, linalg
 from madaiemulator_tpu_torch.ops.kernels import GPParams
+from madaiemulator_tpu_torch.parallel.mesh import check_mesh
 from madaiemulator_tpu_torch.utils.config import GPConfig
 
 
@@ -404,19 +410,20 @@ class IterativeInfo(NamedTuple):
     cg_iters: int
 
 
-def _reject_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh (the row-sharded multi-device matvec) is not "
-            "ported: the port runs on one device")
-
-
 def _matvec_for(params, data, config, mesh, row_chunk: int = 2048):
-    """The training matvec closure, row-chunked on one device. row_chunk
-    bounds the kernel tile at (row_chunk, n)."""
-    _reject_mesh(mesh)
-    return lambda V: gram_matvec(data.X, params, config, V,
-                                 row_chunk=row_chunk, noise=data.noise)
+    """The training matvec closure: row-chunked on one device, or
+    row-sharded over `mesh` (`parallel.iterative_sharded`; the JAX package
+    leaves the sharded matvec at its default row_chunk, the port passes
+    it). row_chunk bounds the kernel tile at (row_chunk, n)."""
+    if mesh is None:
+        return lambda V: gram_matvec(data.X, params, config, V,
+                                     row_chunk=row_chunk, noise=data.noise)
+    from madaiemulator_tpu_torch.parallel.iterative_sharded import (
+        make_sharded_matvec,
+    )
+
+    return make_sharded_matvec(data.X, params, config, mesh,
+                               row_chunk=row_chunk, noise=data.noise)
 
 
 def _solve_C(params, data, config, rank, cg, B, mesh=None, row_chunk=2048):
@@ -432,7 +439,6 @@ def _training_operator(params, data, config, rank, mesh=None, row_chunk=2048):
     """Preconditioner, matvec, regression basis and the [y | H] RHS block:
     the training-solve operator, shared by the LML forward and the serving
     precompute so that the two always solve the same system."""
-    _reject_mesh(mesh)
     Lk = pivoted_cholesky(data.X, params, config, rank)
     pre = make_preconditioner(Lk, _ridge(params, data, config))
     mv = _matvec_for(params, data, config, mesh, row_chunk)
@@ -465,6 +471,7 @@ class _IterOptions(NamedTuple):
     cg_max_iters: int
     logdet_method: str
     row_chunk: int
+    mesh: object = None
 
 
 def _lml_iterative_impl(params: GPParams, data: GPData, config: GPConfig,
@@ -475,7 +482,7 @@ def _lml_iterative_impl(params: GPParams, data: GPData, config: GPConfig,
     n = data.X.shape[0]
     dt, dev = data.X.dtype, data.X.device
     pre, mv, H, B, Lk = _training_operator(params, data, config, opts.rank,
-                                           None, opts.row_chunk)
+                                           opts.mesh, opts.row_chunk)
     nbase = B.shape[1]
     if opts.logdet_method == "mbcg":
         # probes z ~ N(0, P), drawn with P's ACTUAL ridge (the conditioning
@@ -516,38 +523,58 @@ def _lml_iterative_impl(params: GPParams, data: GPData, config: GPConfig,
     return ll, alpha, CiH, LA, IterativeInfo(rel_solves, it)
 
 
+def _tile_grads(Xr: torch.Tensor, X: torch.Tensor, p: GPParams,
+                config: GPConfig, Wr: torch.Tensor, V: torch.Tensor,
+                chunk: int) -> list:
+    """sum over the row chunks c of Xr of d/dtheta <W_c V^T, K(X_c, X)>, per
+    leaf of p (whose leaves require grad), one (chunk, n) tile at a time:
+    the tile is rebuilt under autograd (K1 at float32, whose backward is
+    the library-math VJP), back-propagated with cotangent W_c V^T, and
+    freed before the next chunk."""
+    leaves = list(p)
+    total = [torch.zeros_like(t) for t in leaves]
+    for i in range(0, Xr.shape[0], chunk):
+        Kc = kernels.cross_covariance(Xr[i:i + chunk], X, p, config)
+        grads = torch.autograd.grad(Kc, leaves,
+                                    grad_outputs=Wr[i:i + chunk] @ V.mT,
+                                    allow_unused=True)
+        for acc, gr in zip(total, grads):
+            if gr is not None:
+                acc += gr
+        del Kc
+    return total
+
+
 def _quad_form_grad(params: GPParams, data: GPData, config: GPConfig,
                     W: torch.Tensor, V: torch.Tensor,
-                    row_chunk: int) -> Tuple[torch.Tensor, ...]:
+                    row_chunk: int, mesh=None) -> Tuple[torch.Tensor, ...]:
     """d/dtheta of sum_j w_j^T C(theta) v_j for W, V (n, m), per leaf of
-    params. One (row_chunk, n) tile at a time: the tile is rebuilt under
-    autograd (K1 at float32, whose backward is the library-math VJP),
-    back-propagated with cotangent W_chunk V^T, and freed before the next
-    chunk, so no N x N residual is ever held. The diagonal term is
-    differentiated on its own."""
+    params. The kernel part one (row_chunk, n) tile at a time
+    (`_tile_grads`), so no N x N residual is ever held; with a `mesh`, the
+    tile loop split by the sharded matvec's row blocks, each device
+    accumulating its partial (`parallel.iterative_sharded`). The diagonal
+    term is differentiated on its own."""
     X = data.X
     n = X.shape[0]
-    chunk = min(row_chunk, n)
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in params]
         p = GPParams(*leaves)
-        total = [torch.zeros_like(t) for t in leaves]
+        if mesh is None:
+            total = _tile_grads(X, X, p, config, W, V, min(row_chunk, n))
+        else:
+            from madaiemulator_tpu_torch.parallel.iterative_sharded import (
+                quad_form_tile_grads,
+            )
 
-        def add(grads):
-            for acc, gr in zip(total, grads):
-                if gr is not None:
-                    acc += gr
-
-        for i in range(0, n, chunk):
-            Kc = kernels.cross_covariance(X[i:i + chunk], X, p, config)
-            add(torch.autograd.grad(Kc, leaves,
-                                    grad_outputs=W[i:i + chunk] @ V.mT,
-                                    allow_unused=True))
-            del Kc
+            total = list(quad_form_tile_grads(params, X, config, W, V, mesh,
+                                              row_chunk))
         da = _ridge(p, data, config)
         wv = (W * V).sum(1)
         diag_term = (da * wv).sum() if da.ndim else da * wv.sum()
-        add(torch.autograd.grad(diag_term, leaves, allow_unused=True))
+        for acc, gr in zip(total, torch.autograd.grad(diag_term, leaves,
+                                                      allow_unused=True)):
+            if gr is not None:
+                acc += gr
     return tuple(total)
 
 
@@ -593,7 +620,7 @@ class _LMLIterative(torch.autograd.Function):
             scale = 1.0 / opts.probes  # Hutchinson mean
         CiZ, _, _ = _solve_C(params, data, config, opts.rank,
                              (opts.cg_tol, opts.cg_max_iters), Zp,
-                             row_chunk=opts.row_chunk)
+                             mesh=opts.mesh, row_chunk=opts.row_chunk)
         Wl = [0.5 * alpha[:, None], (-0.5 * scale) * CiZ]
         Vr = [alpha[:, None], Zp]
         if config.reml:
@@ -602,7 +629,8 @@ class _LMLIterative(torch.autograd.Function):
                 LA.mT, w, upper=True).mT)  # 0.5 CiH A^-1
             Vr.append(CiH)
         grads = _quad_form_grad(params, data, config, torch.cat(Wl, dim=1),
-                                torch.cat(Vr, dim=1), opts.row_chunk)
+                                torch.cat(Vr, dim=1), opts.row_chunk,
+                                mesh=opts.mesh)
         return (*(gr * g for gr in grads), None, None, None)
 
 
@@ -630,19 +658,22 @@ def lml_iterative(
     probes ride as extra right-hand sides); "slq" runs a separate Lanczos.
 
     params holds one GP, or a batch (B,) of them evaluated one after
-    another: the result is then (B,). A `mesh` raises NotImplementedError
-    (the port runs on one device)."""
+    another: the result is then (B,). A 1-D `mesh`
+    (`parallel.iterative_sharded.make_rows_mesh`) runs every matvec of the
+    forward and the backward row-sharded over its devices, the multi-device
+    large-N fit objective; the value and gradient are those of the
+    single-device layout."""
     if data.dY is not None:
         raise ValueError(
             "the matrix-free path does not support gradient-enhanced data "
             "(dY): the joint value+gradient matvec is not implemented — "
             "use the dense path (models/gp.py), which covers GEK sizes"
         )
-    _reject_mesh(mesh)
+    check_mesh(mesh, "lml_iterative")
     kw = dict(seed=seed, rank=rank, probes=probes,
               lanczos_iters=lanczos_iters, cg_tol=cg_tol,
               cg_max_iters=cg_max_iters, logdet_method=logdet_method,
-              row_chunk=row_chunk)
+              row_chunk=row_chunk, mesh=mesh)
     if params.log_amp.ndim:
         return torch.stack([
             lml_iterative(GPParams(*(a[b] for a in params)), data, config,
@@ -678,21 +709,22 @@ def fit_gp_iterative(
     objective (restarts drawn from `generator`). The probes are fixed by
     `seed`, so the objective is deterministic across LBFGS iterations.
     vg_batch (default 1) is the number of restarts per objective call; the
-    restarts of one call are evaluated one after another."""
+    restarts of one call are evaluated one after another. `mesh` shards
+    every matvec over its devices (see `lml_iterative`)."""
     from madaiemulator_tpu_torch.models.fit import fit_gp_host
 
     if data.dY is not None:
         raise ValueError(
             "the matrix-free path does not support gradient-enhanced data "
             "(dY); use the dense fit (models/fit.py)")
-    _reject_mesh(mesh)
+    check_mesh(mesh, "fit_gp_iterative")
 
     def lml_fn(params, d, cfg):
         return lml_iterative(
             params, d, cfg, seed=seed, rank=rank, probes=probes,
             lanczos_iters=lanczos_iters, cg_tol=cg_tol,
             cg_max_iters=cg_max_iters, logdet_method=logdet_method,
-            row_chunk=row_chunk,
+            row_chunk=row_chunk, mesh=mesh,
         )
 
     return fit_gp_host(
@@ -732,12 +764,14 @@ def precompute_iterative_predictor(
     cg_max_iters: int = 256,
     jitter: Optional[float] = None,
     row_chunk: int = 2048,
+    mesh=None,
 ) -> IterativePosteriorState:
     """One-time matrix-free training solves for serving (see
     IterativePosteriorState). `jitter` overrides the config's diagonal
     stability floor (raise it by hand if a stiff snapshot's solves stall;
     the CG is breakdown-hardened, so the output stays finite either
-    way)."""
+    way). `mesh` shards the training matvec over its devices, as in
+    `lml_iterative` (the JAX function has no mesh argument)."""
     if data.dY is not None:
         raise ValueError(
             "the matrix-free path does not support gradient-enhanced data "
@@ -745,7 +779,8 @@ def precompute_iterative_predictor(
         )
     if jitter is not None:
         config = dataclasses.replace(config, jitter=jitter)
-    pre, mv, H, B, _ = _training_operator(params, data, config, rank, None,
+    check_mesh(mesh, "precompute_iterative_predictor")
+    pre, mv, H, B, _ = _training_operator(params, data, config, rank, mesh,
                                           row_chunk)
     S, _, _ = pcg_solve(mv, B, pre, tol=cg_tol, max_iters=cg_max_iters)
     LA, beta, alpha = _gls_from_solves(H, S[:, 0], S[:, 1:])

@@ -151,31 +151,21 @@ def _gate(ok: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
     return torch.where(ok[..., None, None], L, _eye(L.shape[-1], L))
 
 
-def _sgpr_system(
-    params: GPParams,
-    data: GPData,
-    config: GPConfig,
-    Z: torch.Tensor,
-    row_chunk: Optional[int] = None,
-) -> _SGPRSystem:
+def _row_summaries(params: GPParams, data: GPData, config: GPConfig,
+                   Z: torch.Tensor, Lm: torch.Tensor,
+                   row_chunk: Optional[int], amp: torch.Tensor,
+                   nugget: torch.Tensor) -> tuple:
+    """The nine sums over data's rows that the SGPR system needs: the seven
+    block summaries (B - I, G_AH, g_Ay, S_HH, S_Hy, S_yy, tr_AA) and
+    sum_i log D_i, sum_i amp / D_i (gradient rows included), streamed in
+    row_chunk pieces, each checkpointed under autograd. amp and nugget are
+    the caller's exp(log_amp), exp(log_nugget): one node each, so the
+    gradient sums in the order it did before the row sums were split
+    out."""
     X, y = data.X, data.y
     n, d = X.shape[-2:]
     dtype = y.dtype
-    amp = torch.exp(params.log_amp)  # (*B,)
-    nugget = torch.exp(params.log_nugget)
-    m = Z.shape[-2]
     has_grad = data.dY is not None
-    if has_grad and data.h_extra is not None:
-        raise ValueError(
-            "h_extra and dY cannot be combined (same rule as the dense "
-            "path: the extra regression columns have no derivative rows)"
-        )
-    Kmm = kernels.cross_covariance(Z, Z, params, config)  # (*B, m, m)
-    Kmm = 0.5 * (Kmm + Kmm.mT) + (
-        _mm_jitter(dtype) * amp)[..., None, None] * _eye(m, Kmm)
-    Lm = linalg.xla_cholesky(Kmm)
-    ok = linalg.chol_ok(Lm)
-    Lm = _gate(ok, Lm)
     D = nugget[..., None] * torch.ones(n, dtype=dtype, device=X.device)
     if data.noise is not None:
         D = D + data.noise.to(dtype)
@@ -271,7 +261,53 @@ def _sgpr_system(
                 if remat else block_summaries(*blk))
             sums = parts if sums is None else tuple(
                 a + b for a, b in zip(sums, parts))
-    AAT, G_AH, g_Ay, S_HH, S_Hy, S_yy, tr_AA = sums
+    return sums + (sum_logD, sum_kD)
+
+
+def _sgpr_system(
+    params: GPParams,
+    data: GPData,
+    config: GPConfig,
+    Z: torch.Tensor,
+    row_chunk: Optional[int] = None,
+    shards=None,
+) -> _SGPRSystem:
+    """The SGPR linear algebra of (params, data, Z). `shards`, when given,
+    is (mesh, [GPData, one a row shard on its device]) from
+    `parallel.sparse_sharded.shard_data_rows`: the row sums
+    (`_row_summaries`) then run on each shard's device and are summed onto
+    Z's device; everything else is O(m^2) and runs there once."""
+    dtype = data.y.dtype
+    amp = torch.exp(params.log_amp)  # (*B,)
+    nugget = torch.exp(params.log_nugget)
+    m = Z.shape[-2]
+    if data.dY is not None and data.h_extra is not None:
+        raise ValueError(
+            "h_extra and dY cannot be combined (same rule as the dense "
+            "path: the extra regression columns have no derivative rows)"
+        )
+    Kmm = kernels.cross_covariance(Z, Z, params, config)  # (*B, m, m)
+    Kmm = 0.5 * (Kmm + Kmm.mT) + (
+        _mm_jitter(dtype) * amp)[..., None, None] * _eye(m, Kmm)
+    Lm = linalg.xla_cholesky(Kmm)
+    ok = linalg.chol_ok(Lm)
+    Lm = _gate(ok, Lm)
+    if shards is None:
+        sums = _row_summaries(params, data, config, Z, Lm, row_chunk, amp,
+                              nugget)
+    else:
+        from madaiemulator_tpu_torch.parallel.mesh import sum_partials
+
+        mesh, parts = shards
+
+        def one(dev, part):
+            return _row_summaries(GPParams(*(t.to(dev) for t in params)),
+                                  part, config, Z.to(dev), Lm.to(dev),
+                                  row_chunk, amp.to(dev), nugget.to(dev))
+
+        devs = [part.X.device for part in parts]
+        sums = sum_partials(mesh.map(devs, one, devs, parts), Z.device)
+    AAT, G_AH, g_Ay, S_HH, S_Hy, S_yy, tr_AA, sum_logD, sum_kD = sums
 
     B = _eye(m, AAT) + 0.5 * (AAT + AAT.mT)
     LB = linalg.xla_cholesky(B)
@@ -313,7 +349,14 @@ def elbo(
     fixed-size chunks (one checkpointed chunk at a time): live memory
     O(m * row_chunk), flat in N, the million-point path.
     """
-    sys = _sgpr_system(params, data, config, Z, row_chunk=row_chunk)
+    return _elbo_of(_sgpr_system(params, data, config, Z,
+                                 row_chunk=row_chunk), data, config)
+
+
+def _elbo_of(sys: _SGPRSystem, data: GPData, config: GPConfig
+             ) -> torch.Tensor:
+    """The ELBO from the system of (params, data, Z); data gives the row
+    count."""
     n, d = data.X.shape[-2:]
     if data.dY is not None:
         n = n * (1 + d)  # joint value + gradient rows

@@ -227,6 +227,121 @@ def _left_cholesky_impl(A: torch.Tensor, block: int, upd: str, tprec: str,
     return L
 
 
+def left_cholesky_sharded(
+    A: torch.Tensor,
+    mesh,
+    axis: str = "rows",
+    block: int = 1024,
+    update_precision: str = "highest",
+) -> torch.Tensor:
+    """`left_cholesky` run row-sharded over the devices along `axis` of a
+    `parallel.mesh.Mesh`: each device owns a contiguous row block of A and
+    of L (ceil(n / devices) rows). For panel k, the owners of L's panel
+    rows send that row block to every device, each device forms the
+    history product of its own rows below the panel's top (the history
+    GEMM split by output rows; float64 forming at "highest", as
+    `_history`), the diagonal block is gathered on the owner of its first
+    row, factored there and sent out, and each device forms its own rows
+    below it. As in the JAX function (which calls `left_cholesky` with its
+    default diag="xla"), the diagonal blocks are library factorizations:
+    kernel K3 is not on this path. A single (n, n) matrix, n a multiple
+    of `block`; the factor comes back gathered on the mesh's first device,
+    differentiable with the Murray backward."""
+    from madaiemulator_tpu_torch.parallel.mesh import check_mesh
+
+    check_mesh(mesh, "left_cholesky_sharded")
+    if mesh is None:
+        raise TypeError("left_cholesky_sharded: a mesh is required")
+    if update_precision not in TIERS:
+        raise ValueError(f"left_cholesky_sharded: unknown precision tier "
+                         f"{update_precision!r}")
+    if A.ndim != 2 or A.shape[0] != A.shape[1]:
+        raise ValueError(f"left_cholesky_sharded: A must be (n, n), got "
+                         f"{tuple(A.shape)}")
+    if A.shape[0] % block:
+        raise ValueError(f"left_cholesky_sharded: N={A.shape[0]} % {block} "
+                         "!= 0 (pad_spd first)")
+    return _MurrayCholesky.apply(A.to(mesh.first), _left_cholesky_gathered,
+                                 mesh, axis, block, update_precision)
+
+
+def _left_cholesky_gathered(A, mesh, axis, block, upd) -> torch.Tensor:
+    owners, Ls = _left_cholesky_shards(A, mesh, axis, block, upd)
+    return torch.cat([L.to(A.device) for L in Ls])
+
+
+def _left_cholesky_shards(A: torch.Tensor, mesh, axis: str, block: int,
+                          upd: str):
+    """The sharded factor's row blocks: ([(device, first row, end row)],
+    [L rows on that device]), one entry a device that owns rows."""
+    from madaiemulator_tpu_torch.parallel.mesh import blocks
+
+    n = A.shape[-1]
+    devs = mesh.axis_devices(axis)
+    owners = [(d, r0, r1) for d, (r0, r1) in zip(devs, blocks(n, len(devs)))
+              if r1 > r0]
+    As = [A[r0:r1].to(d) for d, r0, r1 in owners]
+    Ls = [torch.zeros((r1 - r0, n), dtype=A.dtype, device=d)
+          for d, r0, r1 in owners]
+    f32 = A.dtype == torch.float32
+    idx = list(range(len(owners)))
+    for cj in range(0, n, block):
+        ce = cj + block
+        holders = [k for k in idx if owners[k][1] < ce and owners[k][2] > cj]
+        Lp = None
+        if cj:
+            # the panel's rows of L, from their owners to every device
+            Lp = torch.cat([Ls[k][max(cj, owners[k][1]) - owners[k][1]:
+                                  min(ce, owners[k][2]) - owners[k][1], :cj]
+                            .to(A.device) for k in holders])
+            Lp = {d: Lp.to(d) for d in mesh.distinct}
+
+        def history(k):
+            d, r0, r1 = owners[k]
+            if r1 <= cj:
+                return None
+            a = max(cj, r0) - r0
+            Pa = As[k][a:, cj:ce]
+            if cj:
+                Pa = _history(Pa[None], Ls[k][a:, :cj][None], Lp[d][None],
+                              upd)[0]
+            return Pa
+
+        Pas = mesh.map([o[0] for o in owners], history, idx)
+        # the diagonal block, gathered on the owner of its first row,
+        # factored there and sent out
+        d0 = owners[holders[0]][0]
+        D = torch.cat([Pas[k][:min(ce, owners[k][2]) - max(cj, owners[k][1])]
+                       .to(d0) for k in holders])
+        Lkk = xla_cholesky(D)
+        invK = (tri_inv_block(Lkk, precision=upd)
+                if f32 and upd != "highest" else None)
+        Lkk = {d: Lkk.to(d) for d in mesh.distinct}
+        invK = None if invK is None else {d: invK.to(d)
+                                          for d in mesh.distinct}
+
+        def below(k):
+            d, r0, r1 = owners[k]
+            if r1 <= cj:
+                return None
+            a = max(cj, r0)
+            top = min(ce, r1)
+            if top > a:  # this device's rows of the diagonal block
+                Ls[k][a - r0:top - r0, cj:ce] = Lkk[d][a - cj:top - cj]
+            if r1 > ce:
+                P21 = Pas[k][max(ce, r0) - a:]
+                if invK is not None:
+                    L21 = matmul_tier(P21, invK[d].mT, upd)
+                else:  # L21 Lkk^T = P21
+                    L21 = torch.linalg.solve_triangular(
+                        Lkk[d].mT, P21, upper=True, left=False)
+                Ls[k][max(ce, r0) - r0:, cj:ce] = L21
+            return None
+
+        mesh.map([o[0] for o in owners], below, idx)
+    return owners, Ls
+
+
 def choose_update_precision(kappa_bound: float, tol: float = 1e-3) -> str:
     """The update tier from a condition-number bound (JAX
     ops/linalg.py:281-295): "high" (3xTF32 on the H100) up to

@@ -190,6 +190,6 @@ def test_init_walkers_and_calibrate_match_jax(emus, monkeypatch):
     with pytest.raises(ValueError, match="unknown sampler"):
         tcal.calibrate(torch.Generator(), et, y, v, n_walkers=W, n_steps=4,
                        sampler="nuts")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         tcal.run_emcee(torch.Generator(), None, torch.zeros(W, D), 2,
                        mesh=object())

@@ -988,3 +988,53 @@ def test_compat_on_the_card(dev):
         rmse = float(np.sqrt(np.mean((m - np.sin(pts[:, 0])) ** 2)))
         print(f"compat {dtype}: thetas {th}, rmse {rmse:.3g}")
         assert rmse < 1e-2 and np.all(v >= 0), (dtype, rmse)
+
+
+def test_virtual_mesh_on_the_card(dev):
+    """A virtual 2-shard mesh on cuda:0: the row-sharded matvec equals the
+    unsharded one bitwise where the shards' blocks are whole chunks (the
+    same K1 tiles and GEMMs), K1 launching once a chunk a shard; the
+    ensemble fit over it equals the one-batch fit."""
+    from madaiemulator_tpu_torch.models import iterative
+    from madaiemulator_tpu_torch.ops.kernels import GPParams
+    from madaiemulator_tpu_torch.parallel import ensemble, iterative_sharded
+    from madaiemulator_tpu_torch.utils.config import GPConfig
+
+    rng = np.random.default_rng(16)
+    n, chunk = 4096, 512
+    X = torch.tensor(rng.uniform(size=(n, 4)), dtype=torch.float32,
+                     device=dev)
+    p = GPParams(*(torch.tensor(v, dtype=torch.float32, device=dev)
+                   for v in (0.0, np.log(0.1), np.log([0.4] * 4))))
+    cfg = GPConfig(nparams=4, regression_order=1)
+    V = torch.tensor(rng.standard_normal((n, 3)), dtype=torch.float32,
+                     device=dev)
+    mesh = iterative_sharded.make_rows_mesh(devices=[dev, dev])
+    before = k1.launches
+    got = iterative_sharded.sharded_gram_matvec(X, p, cfg, V, mesh,
+                                                row_chunk=chunk)
+    assert k1.launches - before == n // chunk
+    want = iterative.gram_matvec(X, p, cfg, V, row_chunk=chunk)
+    torch.cuda.synchronize()
+    assert got.device == dev and torch.equal(got, want)
+
+    E, N = 64, 32
+    Xb = torch.tensor(rng.uniform(size=(E, N, 2)), dtype=torch.float32,
+                      device=dev)
+    yb = torch.sin(3 * Xb[..., 0]) + Xb[..., 1] ** 2
+    ecfg = GPConfig(nparams=2, regression_order=1, n_restarts=2,
+                    max_opt_steps=8)
+    whole = ensemble.fit_ensemble(torch.Generator().manual_seed(0), Xb, yb,
+                                  ecfg)
+    before = (k1.launches, k2.launches)
+    sharded = ensemble.fit_ensemble(torch.Generator().manual_seed(0), Xb, yb,
+                                    ecfg, mesh=ensemble.make_mesh(
+                                        devices=[dev, dev]))
+    evals = sharded.stats["n_vg_calls"] + sharded.stats["n_v_calls"]
+    assert (k1.launches - before[0], k2.launches - before[1]) == (evals,
+                                                                  evals)
+    a, b = whole.log_likelihood.cpu(), sharded.log_likelihood.cpu()
+    assert torch.isfinite(a).all()
+    # a float32 linesearch branch may flip on one ulp: most members equal
+    share = ((a - b).abs() <= 1e-4 * a.abs()).double().mean().item()
+    assert share >= 0.9, share

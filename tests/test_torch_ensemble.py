@@ -170,12 +170,28 @@ def test_ensemble_chunk_must_divide_e(case):
         _fit(case, ensemble_chunk=2)
 
 
-def test_mesh_is_not_ported(case):
-    with pytest.raises(NotImplementedError, match="mesh"):
+def test_mesh_is_not_ported(case, whole):
+    """A mesh argument must be a parallel.mesh.Mesh (anything else is
+    refused); a virtual mesh, one shard a member, gives the one batch's
+    fit and serve (tests/test_torch_mesh.py holds it against JAX's)."""
+    with pytest.raises(TypeError, match="mesh"):
         _fit(case, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         tens.predict_ensemble(case["rt"].params, case["Xt"], case["yt"],
                               case["Xt"], case["ct"], mesh=object())
+    mesh = tens.make_mesh(devices=["cpu"] * E)
+    res = _fit(case, mesh=mesh)
+    for a, b in zip(res[:4], whole[:4]):
+        for u, v in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            np.testing.assert_allclose(u.numpy(), v.numpy(), rtol=SAME_RTOL)
+    got = tens.predict_ensemble(case["rt"].params, case["Xt"], case["yt"],
+                                case["Xt"], case["ct"], mesh=mesh)
+    want = tens.predict_ensemble(case["rt"].params, case["Xt"], case["yt"],
+                                 case["Xt"], case["ct"])
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=SAME_RTOL,
+                                   atol=1e-14)
 
 
 def test_predict_ensemble_matches_jax_f64(case):

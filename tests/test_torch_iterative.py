@@ -332,8 +332,9 @@ def test_lml_iterative_row_chunk_invariant():
 
 def test_lml_iterative_gate_and_rejections():
     """A solve that cannot converge in its budget is walled off at -inf;
-    gradient data and a device mesh are refused; extra GLS basis columns
-    (h_extra, the multi-fidelity column) train as in the dense LML."""
+    gradient data and a mesh that is not a Mesh are refused; extra GLS
+    basis columns (h_extra, the multi-fidelity column) train as in the
+    dense LML."""
     X, y, nz, th = _problem(24)
     ct, dt, pt = _torch(X, y, nz, th)
     ll = ti.lml_iterative(pt, dt, ct, rank=2, probes=4, cg_tol=1e-14,
@@ -347,7 +348,7 @@ def test_lml_iterative_gate_and_rejections():
     with pytest.raises(ValueError, match="gradient-enhanced"):
         ti.fit_gp_iterative(torch.Generator(), dt._replace(
             dY=torch.zeros(24, 2)), ct)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         ti.lml_iterative(pt, dt, ct, mesh=object())
     dh = dt._replace(h_extra=torch.cos(3 * dt.X[:, :1]))
     _close(ti.lml_iterative(pt, dh, ct, rank=24, probes=24, **EXACT),
