@@ -20,8 +20,14 @@ It imports no jax. Phases, in order; any failure exits non-zero:
                bitwise-equal repeats and a call on a non-default stream; for
                K2 and K3 (one cluster launch per call) the chosen cluster
                sizes and batches of more clusters than the card holds at
-               once; kernel, plain and library (K1: a library composite)
-               times, each kernel's bound, and K1's host time per call.
+               once; the test-only skewed build of K2 and K3 (every CTA but
+               rank 0 waits before each diagonal-block load; built beside
+               phase 2) bitwise equal to the production build at cluster
+               sizes 1, 2, 4, 8 and 16; 500 / 500 / 200 calls at (4,512),
+               (1,512), (16,512) bitwise equal while a second process runs
+               K1 in a loop; kernel, plain and library (K1: a library
+               composite) times, each kernel's bound, and K1's host time
+               per call.
   4. goldens — serve tests/golden/*/state.txt on the card: float64 (library
                path) against expected.txt at rtol 1e-6; float32 (kernel
                path) against the float32 plain-kernel path on the CPU.
@@ -88,7 +94,9 @@ It imports no jax. Phases, in order; any failure exits non-zero:
                own panels and timed; the float32 fit scored by float64; the
                v3 snapshot served at float32 against float64; the CLI
                (estimate_thetas --noise_file --gradients_file, then
-               interactive_mode on the version-3 snapshot).
+               interactive_mode on the version-3 snapshot); that snapshot
+               read and served in process 20 times while a second process
+               loads the card, bitwise equal.
  10. iterative — the matrix-free GP (models/iterative.py) at
                bench/capability_64k.py's full width: N=65,536 in d=8,
                float32, y = a smooth truth + 0.05 noise, rank 64, 8 probes,
@@ -387,6 +395,9 @@ G_K3_RESIDUAL, G_K3_RTOL, G_K3_INV = 1e-5, 5e-4, 1e-3
 # float64 fit from the same starts, over max(1, |best|): measured -1.5e-2
 # to 3.5e-3 (the float32 fit ahead on one component).
 G_LL_RTOL = 1e-2
+# The CLI's v3 snapshot read and served in process this many times while a
+# second process loads the card: every serve bitwise equal to the first.
+G_LOAD_REPEATS = 20
 # Serving the v3 snapshot, float32 vs float64 (the float32 jitter floor on
 # both): means over their scale, measured 8.4e-4 (values) and 5.2e-4
 # (gradients); variances over their prior variance, 1.1e-6 and 8.6e-6.
@@ -792,6 +803,51 @@ def _cluster_checks(dev, rng) -> None:
           "default stream's")
 
 
+def _race_checks(dev, skew_build) -> dict:
+    """A cross-CTA race in K2 and K3 looked for two more ways: the skewed
+    build (every CTA but rank 0 waits before each diagonal-block load)
+    against the production build at every cluster size the main paths use,
+    bitwise; and the production kernels called 500 / 500 / 200 times while
+    a second process runs K1 in a loop on the card, each call bitwise equal
+    to the first. Returns the readings for the kernels line."""
+    from madaiemulator_tpu_torch.ops.hopper import build
+    from madaiemulator_tpu_torch.tools import cluster_skew
+
+    t0 = time.perf_counter()
+    load = cluster_skew.CardLoad()  # sets itself up during the skew check
+    try:
+        skew_s = skew_build.result()
+        skew = {}
+        for B, n in cluster_skew.SHAPES:
+            r = cluster_skew.compare(cluster_skew.gram(B, n, B * n, dev))
+            skew[f"({B},{n})"] = r
+            outs = ("K2 L", "K3 L", "K3 Linv")
+            require(all(r[o]["equal"] for o in outs),
+                    f"K2/K3 ({B},{n},{n}) C={r['C']}: the skewed build "
+                    f"differs from the production build: "
+                    f"{ {o: r[o] for o in outs} }")
+        sizes = sorted({r["C"] for r in skew.values()})
+        require(sizes == [1, 2, 4, 8, 16], f"skew check cluster sizes {sizes}")
+        print(f"K2/K3 skewed build ({build.SKEW_NS} ns before each "
+              f"diagonal-block load on every CTA but rank 0; built beside "
+              f"phase 2 in {skew_s:.1f} s): L and Linv bitwise equal to the "
+              f"production build at " + ", ".join(
+                  f"{k} C={r['C']}" for k, r in skew.items()))
+        rep = cluster_skew.repeat_under_load(dev, load)
+    finally:
+        load.stop()
+    require(all(r["equal"] for r in rep.values()),
+            f"K2/K3 under a card load: calls differ: {rep}")
+    print("K2/K3 under a card load (K1 in a loop in a second process): "
+          + ", ".join(f"{r['calls']} calls at {k} C={r['C']}"
+                      for k, r in rep.items())
+          + f", each bitwise equal to the first; skew and load checks "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"skew_ns": build.SKEW_NS,
+            "skew_equal": {k: r["C"] for k, r in skew.items()},
+            "repeat_under_load": rep}
+
+
 # K1 at the main paths' shapes, (route, B, n1, n2, d): config 4's Gram at
 # one theta and at the fit's 2 restarts, its 1,024-query chunk; the slice's
 # Gram, predict-1024 cross and one-query cross; config 3's fit Gram (4
@@ -977,7 +1033,7 @@ def _k1_main_shapes(dev, rng, err_so_far: float) -> dict:
             "host_us": host}
 
 
-def phase_kernels(dev, rng, k1_rng) -> list:
+def phase_kernels(dev, rng, k1_rng, skew_build) -> list:
     from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
     from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
     from madaiemulator_tpu_torch.ops.hopper import panel as k3
@@ -1109,6 +1165,7 @@ def phase_kernels(dev, rng, k1_rng) -> list:
         require(bool(torch.isnan(out[1]).any()), f"K3 non-SPD {what} no NaN")
     print("K3 non-SPD input: NaN in the failed member's L and Linv only")
     _cluster_checks(dev, rng)
+    cluster = _race_checks(dev, skew_build)
 
     k3_times, k3_bounds = {}, {}
     for bb, b in ((2, 512), (1, 512), (1, 1024)):
@@ -1147,13 +1204,14 @@ def phase_kernels(dev, rng, k1_rng) -> list:
          "replaces": "madaiemulator_tpu/ops/pallas/cholesky.py:210",
          "max_abs_err": k2_err, "ms": t2, "plain_ms": t2p,
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
-         "library_ms": t2lib},
+         "library_ms": t2lib, "cluster_checks": cluster},
         {"name": "panel_factor", "route": "cuda",
          "source": "madaiemulator_tpu_torch/csrc/panel_factor.cu",
          "replaces": "madaiemulator_tpu/ops/pallas/cholesky.py:179",
          "max_abs_err": k3_err, "ms": k3_times[(Bp, b3)][0],
          "plain_ms": k3_times[(Bp, b3)][1], "bound_ms": k3_bound[0],
-         "bound_by": k3_bound[1], "library_ms": None},
+         "bound_by": k3_bound[1], "library_ms": None,
+         "cluster_checks": cluster},
     ]
 
 
@@ -2681,6 +2739,7 @@ def phase_gradient(dev, seed: int, smi: str) -> tuple:
     from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
     from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
     from madaiemulator_tpu_torch.ops.hopper import panel as k3
+    from madaiemulator_tpu_torch.tools import cluster_skew
     from madaiemulator_tpu_torch.utils.config import GPConfig
 
     failed = []
@@ -2894,37 +2953,64 @@ def phase_gradient(dev, seed: int, smi: str) -> tuple:
         gfile = str(pathlib.Path(tmp) / "grads.txt")
         np.savetxt(gfile, np.transpose(G, (0, 2, 1)).reshape(-1, G_D))
         cstate = str(pathlib.Path(tmp) / "cli_state.txt")
-        t0 = time.perf_counter()
-        rc, _, err = _run_cli(
-            ["estimate_thetas", model, cstate, "--dtype", "float32",
-             "--device", "cuda", "--regression_order", "1", "--restarts",
-             str(G_R), "--steps", str(G_STEPS), "--pca_variance", str(G_PCA),
-             "--seed", str(seed), "--noise_file", nfile, "--gradients_file",
-             gfile])
-        cli_wall = time.perf_counter() - t0
-        ok = rc == 0 and pathlib.Path(cstate).exists()
-        check(ok and pathlib.Path(cstate).read_text().startswith(
-                  "MADAIEMULATOR_TPU_SNAPSHOT 3\n"),
-              f"CLI estimate_thetas --noise_file --gradients_file --dtype "
-              f"float32 exit {rc} in {cli_wall:.2f} s (process start "
-              f"included), a version-3 snapshot; stderr: {err.strip()!r}")
-        if ok:
-            served_emu, pn, on = read_snapshot(cstate, device=dev,
-                                               dtype=torch.float32)
-            batches = [queries[:1], queries[1:64], queries]
-            header = ([f"{G_D}\n"] + [f"{x}\n" for x in pn]
-                      + [f"{2 * G_T}\n"] + [f"mean_{x}\n" for x in on]
-                      + [f"variance_{x}\n" for x in on])
-            served = _serve_over_pipe(cstate, batches, G_D, G_T, header)
-            want = np.concatenate(
-                [torch.cat(predict_multivariate(served_emu, b), dim=1)
-                 .cpu().double().numpy() for b in batches])
-            sm = np.abs(served[:, :G_T] - want[:, :G_T]).max() / scale
-            sv = np.abs(served[:, G_T:] - want[:, G_T:]).max() / pv
-            check(sm <= SERVER_TOL and sv <= SERVER_TOL,
-                  f"interactive_mode on the CLI's v3 snapshot vs in-process: "
-                  f"mean {sm:.3g} x scale, var {sv:.3g} x prior var <= "
-                  f"{SERVER_TOL}")
+        # the second process that loads the card below sets itself up
+        # during the CLI's fit
+        load = cluster_skew.CardLoad()
+        try:
+            t0 = time.perf_counter()
+            rc, _, err = _run_cli(
+                ["estimate_thetas", model, cstate, "--dtype", "float32",
+                 "--device", "cuda", "--regression_order", "1",
+                 "--restarts", str(G_R), "--steps", str(G_STEPS),
+                 "--pca_variance", str(G_PCA), "--seed", str(seed),
+                 "--noise_file", nfile, "--gradients_file", gfile])
+            cli_wall = time.perf_counter() - t0
+            ok = rc == 0 and pathlib.Path(cstate).exists()
+            check(ok and pathlib.Path(cstate).read_text().startswith(
+                      "MADAIEMULATOR_TPU_SNAPSHOT 3\n"),
+                  f"CLI estimate_thetas --noise_file --gradients_file "
+                  f"--dtype float32 exit {rc} in {cli_wall:.2f} s (process "
+                  f"start included), a version-3 snapshot; stderr: "
+                  f"{err.strip()!r}")
+            if ok:
+                served_emu, pn, on = read_snapshot(cstate, device=dev,
+                                                   dtype=torch.float32)
+                batches = [queries[:1], queries[1:64], queries]
+                header = ([f"{G_D}\n"] + [f"{x}\n" for x in pn]
+                          + [f"{2 * G_T}\n"] + [f"mean_{x}\n" for x in on]
+                          + [f"variance_{x}\n" for x in on])
+                served = _serve_over_pipe(cstate, batches, G_D, G_T,
+                                          header)
+                want = np.concatenate(
+                    [torch.cat(predict_multivariate(served_emu, b), dim=1)
+                     .cpu().double().numpy() for b in batches])
+                sm = np.abs(served[:, :G_T] - want[:, :G_T]).max() / scale
+                sv = np.abs(served[:, G_T:] - want[:, G_T:]).max() / pv
+                check(sm <= SERVER_TOL and sv <= SERVER_TOL,
+                      f"interactive_mode on the CLI's v3 snapshot vs "
+                      f"in-process: mean {sm:.3g} x scale, var {sv:.3g} x "
+                      f"prior var <= {SERVER_TOL}")
+                # the same file read and served in process G_LOAD_REPEATS
+                # times while a second process runs K1 in a loop on the
+                # card: each read factors the joint Gram again (K3 at
+                # (r,512,512))
+                t0 = time.perf_counter()
+                with load:
+                    reps = []
+                    for _ in range(G_LOAD_REPEATS):
+                        e, _, _ = read_snapshot(cstate, device=dev,
+                                                dtype=torch.float32)
+                        reps.append(torch.cat(predict_multivariate(e, queries),
+                                              dim=1))
+                same = sum(torch.equal(reps[0], x) for x in reps[1:])
+                check(same == G_LOAD_REPEATS - 1,
+                      f"read_snapshot of the CLI's v3 snapshot + serving its "
+                      f"{G_M} queries, {G_LOAD_REPEATS} times under a card "
+                      f"load (K1 in a second process): {same + 1} of "
+                      f"{G_LOAD_REPEATS} bitwise equal to the first "
+                      f"({time.perf_counter() - t0:.2f} s)")
+        finally:
+            load.stop()
     require(not failed, f"gradient: {len(failed)} checks failed: {failed}")
     return launches, k3_grad
 
@@ -5054,6 +5140,38 @@ def phase_design(dev, seed: int, smi: str, work, iter_params,
     return paths, checks
 
 
+class _SkewBuild:
+    """The test-only skewed build of K2 and K3 (`build.load_skewed`),
+    compiled in a thread beside phase 2's build."""
+
+    def __init__(self):
+        from madaiemulator_tpu_torch.ops.hopper import build
+
+        self.seconds, self.error = None, None
+
+        def run():
+            t0 = time.perf_counter()
+            try:
+                build.load_skewed()
+            except Exception as e:  # reported by result()
+                self.error = e
+            self.seconds = time.perf_counter() - t0
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def result(self, raise_error: bool = True) -> float:
+        """Wait for the build (its nvcc processes end with it); the seconds
+        it took, or its error raised."""
+        self.thread.join(timeout=600)
+        if raise_error:
+            require(not self.thread.is_alive(),
+                    "skewed build: no end in 600 s")
+            if self.error is not None:
+                raise self.error
+        return self.seconds
+
+
 class _NativeBuild:
     """native/ (libmadai_emu.so and madai_query) built by make in the
     background into `out` while the phases before it run; `stop` kills it
@@ -5698,8 +5816,14 @@ def main() -> int:
 
 
 def _run_phases(args, dev, rng, work, smi, native, t_start) -> int:
-    phase_build()
-    kernels = phase_kernels(dev, rng, np.random.default_rng([args.seed, 1]))
+    skew_build = _SkewBuild()
+    try:
+        phase_build()
+        kernels = phase_kernels(dev, rng,
+                                np.random.default_rng([args.seed, 1]),
+                                skew_build)
+    finally:
+        skew_build.result(raise_error=False)
     phase_goldens(dev)
     paths = {}
     paths["serve_multivariate"], paths["serve_fast"] = phase_slice(dev, rng,

@@ -16,7 +16,40 @@
 //  * data written by another CTA of the cluster is read with __ldcg (L2),
 //    never through the non-coherent path (__ldg / const __restrict__);
 //  * every product is full-FP32 FFMA (no tensor cores, no TF32): the TPU
-//    kernels pin Precision.HIGHEST on every dot.
+//    kernels pin Precision.HIGHEST on every dot;
+//  * no CTA stores to an address that another CTA of the cluster may still
+//    load, or load from one that another may still store to, without a
+//    cluster.sync() between (write-after-read as well as read-after-write).
+//
+// Every pair of accesses by two CTAs of a cluster to the same global
+// addresses in K2 and K3, in order, with the barrier between ("->"). Stage
+// 1 is factor_in_cluster at panel k0, S1 its barrier after the panel solve
+// and S2 the one after the trailing update; stage 2 is K3's inverse
+// (panel_factor.cu).
+//  * diagonal block of k0: the trailing update of k0 - 32 stores it -> (S2
+//    of k0 - 32) every CTA loads it -> (S1 of k0) the top ranks store its
+//    factor -> (S2 of k0, the kernel's end) K3's level 0 and the caller
+//    load it. At the last panel rank 0 alone loads and stores it;
+//  * panel rows of k0: the trailing update of k0 - 32 stores them -> (S2
+//    of k0 - 32) the warp of their chunk loads and stores them -> (S1 of
+//    k0) every CTA's trailing update loads them as L21;
+//  * a trailing tile: its CTA loads and stores it -> (S2 of k0) every CTA
+//    at panel k0 + 32;
+//  * K3's Linv diagonal tiles: one warp a tile stores them -> (the barrier
+//    after level 0) level 32's products load them;
+//  * K3's T, in L's upper triangle off the diagonal tiles: level s's first
+//    product stores it -> (the barrier between them) its second loads it
+//    -> (the barrier ending level s) level 2s's first stores over it;
+//  * K3's Linv below the diagonal, level s: the second product stores it
+//    -> (the barrier ending level s) level 2s's products load it;
+//  * L's upper tiles in K3: the last level's second product loads T ->
+//    (the barrier ending that level) zero_upper_tiles stores zeros.
+// K2's ZERO_UPPER stores (right of the diagonal block) and K3's T scratch
+// never meet a diagonal block or a load of the lower triangle.
+// tools/cluster_skew.py holds the outputs of a build in which every CTA but
+// rank 0 waits before each diagonal-block load (MADAI_CLUSTER_SKEW_NS)
+// bitwise equal to the production build's; a barrier moved without this
+// list in view shows there.
 
 #pragma once
 
@@ -517,12 +550,36 @@ __device__ __forceinline__ void update_trailing(Smem& sm, const float* src,
   }
 }
 
+#ifdef MADAI_CLUSTER_SKEW_NS
+// Test-only (build.load_skewed; the production library is compiled without
+// this define): every CTA but rank 0 waits MADAI_CLUSTER_SKEW_NS ns, by the
+// global timer, before it loads a diagonal block that the cluster wrote.
+// That is several times rank 0's factor of the block, so a store that could
+// overtake another CTA's load of the same addresses does, and the outputs
+// then differ from the production build's.
+__device__ __forceinline__ void skew_wait(int rank) {
+  if (rank == 0) return;
+  if (threadIdx.x == 0) {
+    unsigned long long t0, t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+    do {
+      __nanosleep(1000);
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    } while (t - t0 < static_cast<unsigned long long>(MADAI_CLUSTER_SKEW_NS));
+  }
+  __syncthreads();
+}
+#endif
+
 // Lower Cholesky factor of the n x n matrix A into L by the C CTAs of one
 // cluster, right-looking over 32-wide panels. Per panel: every CTA loads the
 // diagonal block and its warp 0 factors it (redundantly: 32x32 is cheaper
-// than a barrier), CTA 0 writes it back; the rows below are dealt to the
-// cluster's warps in chunks of 32 and solved against the block in shared
-// memory; cluster.sync(); the trailing update; cluster.sync(). Only the
+// than a barrier); the rows below are dealt to the cluster's warps in chunks
+// of 32 and solved against the block in shared memory; cluster.sync(); the
+// block written back to L (only now: every CTA loaded the same addresses
+// before the barrier); the trailing update, which never reads the block;
+// cluster.sync(). At the last panel, which has no rows below and no first
+// barrier, CTA 0 alone loads, factors and writes the block. Only the
 // lower triangle of A is read. The diagonal blocks get zeros above their
 // diagonal; with ZERO_UPPER the rest of the upper triangle of L is zeroed
 // too (kernel K3 uses it as scratch and zeroes it at its end). Ends on a
@@ -539,21 +596,21 @@ __device__ __forceinline__ void factor_in_cluster(cg::cluster_group& cluster,
   for (int k0 = 0; k0 < n_; k0 += kNB) {
     const int jb = min(kNB, n_ - k0);
     const int t0 = k0 + jb;  // first row below the panel
+    const bool below = t0 < n_;
     const float* src = (k0 == 0) ? A : L;
-    {  // the lower triangle of the diagonal block, one float4 per thread
-      const int i = tid >> 3, j = 4 * (tid & 7);
-      float4 v = ldcg4(src + (k0 + i) * n + k0 + j, (n_ & 3) == 0,
-                       i < jb ? min(jb, i + 1) - j : 0);
-      *reinterpret_cast<float4*>(&sm.Dt[i][j]) = v;
-    }
-    __syncthreads();
-    if (warp == 0) factor_diag_warp(sm, lane, jb);
-    __syncthreads();
-    if (rank == 0) {
-      for (int idx = tid; idx < jb * kNB; idx += kThreads) {
-        const int i = idx >> 5, j = idx & 31;
-        if (j < jb) L[(k0 + i) * n + k0 + j] = sm.Dt[j][i];
+    if (below || rank == 0) {
+#ifdef MADAI_CLUSTER_SKEW_NS
+      if (k0 > 0) skew_wait(rank);
+#endif
+      {  // the lower triangle of the diagonal block, one float4 per thread
+        const int i = tid >> 3, j = 4 * (tid & 7);
+        float4 v = ldcg4(src + (k0 + i) * n + k0 + j, (n_ & 3) == 0,
+                         i < jb ? min(jb, i + 1) - j : 0);
+        *reinterpret_cast<float4*>(&sm.Dt[i][j]) = v;
       }
+      __syncthreads();
+      if (warp == 0) factor_diag_warp(sm, lane, jb);
+      __syncthreads();
     }
     if (ZERO_UPPER) {  // rows of this panel, right of the diagonal block
       const int w = n_ - t0;
@@ -562,14 +619,26 @@ __device__ __forceinline__ void factor_in_cluster(cg::cluster_group& cluster,
         L[(k0 + idx / w) * n + t0 + idx % w] = 0.0f;
       }
     }
-    if (t0 < n_) {
+    if (below) {
       const int chunks = (n_ - t0 + kNB - 1) / kNB;
       for (int ch = rank + warp * C; ch < chunks; ch += C * kWarps) {
         solve_chunk(sm, stage, src, L, n, k0, t0 + ch * kNB, lane);
       }
       cluster.sync();
-      update_trailing(sm, src, L, n, k0, t0, rank, C);
     }
+    {  // the block into L from sm.Dt, unchanged since the factor: dealt
+       // over the highest ranks, which update_trailing deals the fewest
+       // tiles (K2 ~2% faster so than with rank 0 writing, H100); at the last
+       // panel rank 0, the only CTA that factored the block
+      const int writers = below ? C : 1;
+      const int q = writers - 1 - rank;
+      for (int idx = q * kThreads + tid; q >= 0 && idx < jb * kNB;
+           idx += writers * kThreads) {
+        const int i = idx >> 5, j = idx & 31;
+        if (j < jb) L[(k0 + i) * n + k0 + j] = sm.Dt[j][i];
+      }
+    }
+    if (below) update_trailing(sm, src, L, n, k0, t0, rank, C);
     cluster.sync();
   }
 }

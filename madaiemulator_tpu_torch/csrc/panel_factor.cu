@@ -24,7 +24,9 @@
 // f32 buffers are 3-12 MiB, far over the 227 KB of shared memory a CTA may
 // use, so the kernel works in L2-resident global memory and stages tiles in
 // shared memory.
-//   Stage 1, the factor: kernel K2's device code (factor_in_cluster).
+//   Stage 1, the factor: kernel K2's device code (factor_in_cluster;
+//     each diagonal block is written to L only after the barrier that
+//     follows every CTA's load of it).
 //   Stage 2, the inverse, by recursive doubling:
 //     * level 0: the 32x32 diagonal tiles of L, dealt over the cluster's
 //       warps, inverted by forward substitution (lane = column of the
@@ -41,7 +43,9 @@
 //       at the end. b / 32 need not be a power of two: a last block without
 //       a neighbour waits for the next level.
 //   NaN in L becomes NaN in L^-1 (0 * NaN is NaN), so a failed member has
-//   NaN in both outputs and the other members are untouched.
+//   NaN in both outputs and the other members are untouched. The barrier
+//   that orders each cross-CTA store and load of both stages is in the
+//   table at the top of chol_cluster.cuh.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (no --use_fast_math).

@@ -222,6 +222,22 @@ def test_k2_k3_repeat_bitwise(dev, B, n):
         assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
+@pytest.mark.parametrize("B,n,C", [(32, 512, 2), (16, 512, 4),
+                                   (4, 512, 16)])
+def test_k2_k3_skewed_build_bitwise(dev, B, n, C):
+    """The test-only skewed build, in which every CTA but rank 0 waits
+    before each diagonal-block load, gives the production build's bits: no
+    CTA's store overtakes another CTA's load of the same addresses."""
+    from madaiemulator_tpu_torch.ops.hopper import build
+    from madaiemulator_tpu_torch.tools import cluster_skew
+
+    assert build.load().madai_cluster_size(B, n) == C
+    r = cluster_skew.compare(cluster_skew.gram(B, n, B * n, dev))
+    assert r["C"] == C
+    for out in ("K2 L", "K3 L", "K3 Linv"):
+        assert r[out]["equal"], (out, r[out])
+
+
 @pytest.mark.parametrize("B,n", [(40, 256), (300, 128)])
 def test_k2_k3_more_clusters_than_the_card_holds(dev, B, n):
     A = _grams(np.random.default_rng(B), B, n)
