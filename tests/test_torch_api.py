@@ -24,6 +24,7 @@ from madaiemulator_tpu_torch import compat as tcompat
 from madaiemulator_tpu_torch.models import fit as tfit
 from madaiemulator_tpu_torch.ops import kernels as tk
 from madaiemulator_tpu_torch.utils import profiling
+import torch_shared  # noqa: F401
 
 
 def test_all_is_the_jax_api_minus_the_compile_cache():

@@ -29,6 +29,7 @@ from madaiemulator_tpu_torch.models import gp as tgp
 from madaiemulator_tpu_torch.ops import kernels as tk
 from madaiemulator_tpu_torch.ops import linalg as tlin
 from madaiemulator_tpu_torch.utils import config as tcfg
+import torch_shared  # noqa: F401
 
 N, B = 96, 32
 # float64: the same arithmetic up to summation order

@@ -34,6 +34,7 @@ from madaiemulator_tpu_torch.models import multifidelity as tmfm
 from madaiemulator_tpu_torch.models import multivariate as tmv
 from madaiemulator_tpu_torch.models import sparse as tsp
 from madaiemulator_tpu_torch.utils import config as tcfg
+import torch_shared  # noqa: F401
 
 CPU = torch.device("cpu")
 # log-posteriors and chains: the same float64 algebra up to summation order

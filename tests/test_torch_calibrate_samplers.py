@@ -19,6 +19,7 @@ from madaiemulator_tpu.models import calibrate as jcal
 from madaiemulator_tpu_torch.models import calibrate as tcal
 from test_torch_calibrate import D, STEPS, W, _close, _j, _pair_lp, _t
 from test_torch_calibrate import build_emulators
+import torch_shared  # noqa: F401
 
 
 @pytest.fixture(scope="module")

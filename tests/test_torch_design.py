@@ -28,6 +28,7 @@ from madaiemulator_tpu_torch.io import snapshot as tsnap
 from madaiemulator_tpu_torch.models import design as tdes
 from madaiemulator_tpu_torch.models import multivariate as tmv
 from madaiemulator_tpu_torch.utils import config as tcfg
+import torch_shared  # noqa: F401
 
 CPU = torch.device("cpu")
 N, D, T = 36, 2, 3

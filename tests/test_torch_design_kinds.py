@@ -26,6 +26,7 @@ from test_torch_design import (
     check_nroy_wave,
 )
 from torch_mf_fixture import mf_emulator
+import torch_shared  # noqa: F401
 
 KINDS = ("sparse", "mf", "mf_scalar")
 

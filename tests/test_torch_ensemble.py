@@ -25,6 +25,7 @@ from madaiemulator_tpu_torch.models import fit as tfit
 from madaiemulator_tpu_torch.ops import kernels as tk
 from madaiemulator_tpu_torch.parallel import ensemble as tens
 from madaiemulator_tpu_torch.utils import config as tcfg
+import torch_shared  # noqa: F401
 
 E, N, D, R, STEPS, M = 3, 12, 2, 2, 5, 7
 # float64 parity with the JAX package: both run optax's L-BFGS with the zoom

@@ -38,6 +38,7 @@ from madaiemulator_tpu_torch.models import multivariate as tmv
 from madaiemulator_tpu_torch.ops import kernels as tk
 from madaiemulator_tpu_torch.utils import config as tcfg
 from madaiemulator_tpu_torch.utils import designs as tdes
+import torch_shared  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "tests" / "golden"

@@ -30,6 +30,7 @@ from madaiemulator_tpu_torch.models import gp as tgp
 from madaiemulator_tpu_torch.models import multivariate as tmv
 from madaiemulator_tpu_torch.ops import kernels as tk
 from madaiemulator_tpu_torch.utils import config as tcfg
+import torch_shared  # noqa: F401
 
 CPU = torch.device("cpu")
 N, D, T, M = 40, 3, 4, 25

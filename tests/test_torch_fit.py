@@ -24,6 +24,7 @@ from madaiemulator_tpu_torch.models import fit as tfit
 from madaiemulator_tpu_torch.models import gp as tgp
 from madaiemulator_tpu_torch.ops import kernels as tk
 from madaiemulator_tpu_torch.utils import config as tcfg
+import torch_shared  # noqa: F401
 
 
 def _problem(n=40, d=2, R=3, seed=0):

@@ -22,6 +22,7 @@ from madaiemulator_tpu_torch.models import gp as tgp
 from madaiemulator_tpu_torch.ops import kernels as tk
 from madaiemulator_tpu_torch.ops import linalg as tl
 from madaiemulator_tpu_torch.utils import config as tcfg
+import torch_shared  # noqa: F401
 
 FAMILIES = ["power_exponential", "matern32", "matern52", "matern32_ard",
             "matern52_ard"]

@@ -32,6 +32,7 @@ from madaiemulator_tpu_torch.models import multivariate as tmv
 from madaiemulator_tpu_torch.ops import kernels as tk
 from madaiemulator_tpu_torch.utils import config as tcfg
 from madaiemulator_tpu_torch.utils import designs as tdes
+import torch_shared  # noqa: F401
 
 N, D, M = 16, 3, 6
 FAMILIES = ("POWER_EXPONENTIAL", "MATERN52", "MATERN52_ARD")

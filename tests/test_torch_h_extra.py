@@ -24,6 +24,7 @@ from madaiemulator_tpu_torch.models import iterative as tit
 from madaiemulator_tpu_torch.models import sparse as tsp
 from madaiemulator_tpu_torch.ops import kernels as tk
 from madaiemulator_tpu_torch.utils import config as tcfg
+import torch_shared  # noqa: F401
 
 # the same float64 algebra up to summation order and two LAPACK builds
 RTOL = 1e-10

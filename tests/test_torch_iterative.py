@@ -29,6 +29,7 @@ from madaiemulator_tpu_torch.models import gp as tgp
 from madaiemulator_tpu_torch.models import iterative as ti
 from madaiemulator_tpu_torch.ops import kernels as tk
 from madaiemulator_tpu_torch.utils import config as tcfg
+import torch_shared  # noqa: F401
 
 CPU = torch.device("cpu")
 # the issue's parity tolerances at float64: values, gradients (relative)

@@ -21,6 +21,7 @@ from madaiemulator_tpu.ops.pallas.pairwise import pairwise_covariance
 from madaiemulator_tpu_torch.ops.hopper import cholesky as k2
 from madaiemulator_tpu_torch.ops.hopper import pairwise as k1
 from madaiemulator_tpu_torch.ops.hopper import panel as k3
+import torch_shared  # noqa: F401
 
 
 def _k1_inputs(seed, n1, n2, d, gram):

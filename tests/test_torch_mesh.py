@@ -36,6 +36,7 @@ from madaiemulator_tpu_torch.parallel import ensemble as tens
 from madaiemulator_tpu_torch.parallel import mesh as tmesh
 from madaiemulator_tpu_torch.utils import config as tcfg
 from torch_mesh_fixture import conditioned_golden
+import torch_shared  # noqa: F401
 
 E, N, D, R, STEPS, M = 4, 12, 2, 2, 3, 7
 CPU8 = ["cpu"] * 8

@@ -40,6 +40,7 @@ from madaiemulator_tpu_torch.models import fit as tfit
 from madaiemulator_tpu_torch.models import multifidelity as tmfm
 from madaiemulator_tpu_torch.ops import kernels as tk
 from madaiemulator_tpu_torch.utils import config as tcfg
+import torch_shared  # noqa: F401
 
 CPU = torch.device("cpu")
 # values, gradients and predictions: the same float64 algebra up to

@@ -21,6 +21,7 @@ from test_torch_multifidelity import (  # noqa: F401  (fixtures and checks)
     test_loo_twins_match_jax,
     test_snapshots_both_ways,
 )
+import torch_shared  # noqa: F401
 
 
 @pytest.fixture(scope="module")

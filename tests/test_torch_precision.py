@@ -28,6 +28,7 @@ from madaiemulator_tpu_torch.models import gp as tgp
 from madaiemulator_tpu_torch.ops import kernels as tk
 from madaiemulator_tpu_torch.ops import linalg as tl
 from madaiemulator_tpu_torch.utils import config as tcfg
+import torch_shared  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SIN1D = str(ROOT / "tests" / "golden" / "sin1d_powerexp" / "model.txt")

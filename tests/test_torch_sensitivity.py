@@ -26,6 +26,7 @@ from madaiemulator_tpu_torch.models import multivariate as tmv
 from madaiemulator_tpu_torch.models import sensitivity as tsens
 from madaiemulator_tpu_torch.ops import kernels as tk
 from madaiemulator_tpu_torch.utils import config as tcfg
+import torch_shared  # noqa: F401
 
 CPU = torch.device("cpu")
 # the same float64 estimators on the same evaluations, up to summation order

@@ -20,6 +20,7 @@ from madaiemulator_tpu_torch.io import snapshot as tsnap
 from madaiemulator_tpu_torch.models import multivariate as tmv
 from madaiemulator_tpu_torch.utils import config as tcfg
 from torch_mf_fixture import mf_emulator
+import torch_shared  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "tests" / "golden"

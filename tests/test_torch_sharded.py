@@ -37,6 +37,7 @@ from madaiemulator_tpu_torch.parallel import sparse_sharded as tss
 from madaiemulator_tpu_torch.utils import config as tcfg
 from test_torch_iterative import _jax_draws
 from torch_mesh_fixture import conditioned_golden
+import torch_shared  # noqa: F401
 
 CPU8 = ["cpu"] * 8
 # the JAX tests' tolerances (tests/test_iterative_sharded.py,

@@ -5,9 +5,9 @@ snapshot.py) and the JAX package in both directions, the port's CLI on
 loads it) and its `madai_query` pipe binary. All float64 on the CPU.
 """
 
+import functools
 import os
 import pathlib
-import shutil
 import subprocess
 import sys
 
@@ -26,6 +26,7 @@ from madaiemulator_tpu_torch.models import multivariate as tmv
 from madaiemulator_tpu_torch.models import sparse as ts
 from madaiemulator_tpu_torch.utils import config as tcfg
 from torch_mf_fixture import mf_emulator
+import torch_shared
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MV = str(ROOT / "tests" / "golden" / "multivar_pca" / "state.txt")
@@ -176,8 +177,10 @@ def test_interactive_mode_on_npz_matches_text(pair, monkeypatch, capsys):
     assert len(npz.out.splitlines()) == 1 + 3 + 1 + 12 + 4 * 12
 
 
+@functools.cache
 def _sparse_emulator():
-    """A small sparse (SGPR) emulator fitted by the port (float64, CPU)."""
+    """A small sparse (SGPR) emulator fitted by the port (float64, CPU),
+    fitted once per process."""
     rng = np.random.default_rng(9)
     X = rng.uniform(1.0, 3.0, size=(40, 2))
     Y = np.stack([np.sin(2 * X[:, 0]) + X[:, 1], X[:, 0] * X[:, 1],
@@ -240,15 +243,9 @@ def test_unported_npz_grammars_exit_2(tmp_path, capsys, monkeypatch, command,
 
 @pytest.fixture(scope="module")
 def native_lib(tmp_path_factory):
-    """A private build of native/ (the library and madai_query), so that
-    this module never writes native/build while tests/test_native.py may be
-    building it in another worker."""
-    if shutil.which("g++") is None or shutil.which("make") is None:
-        pytest.skip("no C++ toolchain")
-    out = tmp_path_factory.mktemp("native_build")
-    subprocess.run(["make", "-C", str(ROOT / "native"), f"BUILD={out}"],
-                   check=True, capture_output=True, timeout=300)
-    return out
+    """This process's private build of native/ (the library and
+    madai_query)."""
+    return torch_shared.native_build(tmp_path_factory)
 
 
 @pytest.fixture(scope="module")

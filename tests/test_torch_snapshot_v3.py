@@ -13,7 +13,6 @@ serve-state build and of its predict, in module-scoped fixtures.
 
 import os
 import pathlib
-import shutil
 import subprocess
 import sys
 
@@ -31,8 +30,8 @@ from madaiemulator_tpu_torch.io import modelfile as tmf
 from madaiemulator_tpu_torch.io import snapshot as tsnap
 from madaiemulator_tpu_torch.models import multivariate as tmv
 from madaiemulator_tpu_torch.utils import config as tcfg
+import torch_shared
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
 N, D, T = 12, 2, 3
 PNAMES, ONAMES = ["a", "b"], ["o0", "o1", "o2"]
@@ -163,14 +162,9 @@ def test_jax_v3_serves_from_port(snap, enc):
 
 @pytest.fixture(scope="module")
 def native_lib(tmp_path_factory):
-    """A private build of native/ (never native/build, which
-    tests/test_native.py may be building in another worker)."""
-    if shutil.which("g++") is None or shutil.which("make") is None:
-        pytest.skip("no C++ toolchain")
-    out = tmp_path_factory.mktemp("native_build_v3")
-    subprocess.run(["make", "-C", str(ROOT / "native"), f"BUILD={out}"],
-                   check=True, capture_output=True, timeout=300)
-    return out
+    """This process's private build of native/ (the library and
+    madai_query)."""
+    return torch_shared.native_build(tmp_path_factory)
 
 
 def test_port_v3_serves_from_native(native_lib, snap, monkeypatch):

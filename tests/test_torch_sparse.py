@@ -40,6 +40,7 @@ from madaiemulator_tpu_torch.models.gp import GPData as TData
 from madaiemulator_tpu_torch.ops import kernels as tk
 from madaiemulator_tpu_torch.utils import config as tcfg
 from madaiemulator_tpu_torch.utils.designs import apply_scaling
+import torch_shared  # noqa: F401
 
 CPU = torch.device("cpu")
 N, D, M, T = 40, 2, 8, 3

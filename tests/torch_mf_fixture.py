@@ -3,6 +3,8 @@ CPU), shared by the port's serving and snapshot tests: noisy data, so that
 the fitted nuggets stay well above float64 rounding (native/ serves the
 snapshots at 1e-10)."""
 
+import functools
+
 import numpy as np
 import torch
 
@@ -10,10 +12,12 @@ from madaiemulator_tpu_torch.models import multifidelity as tmfm
 from madaiemulator_tpu_torch.utils import config as tcfg
 
 
+@functools.cache
 def mf_emulator(multivariate: bool):
     """Version 2 (three outputs, PCA at 0.999) when `multivariate`, else
     version 1 on the first output; d = 2 on [1, 3]^2, 20 cheap and 8
-    expensive runs, 2 restarts x 10 steps."""
+    expensive runs, 2 restarts x 10 steps. Fitted once per process: every
+    caller reads it and none changes it."""
     rng = np.random.default_rng(8)
     X0 = rng.uniform(1.0, 3.0, size=(20, 2))
     X1 = rng.uniform(1.0, 3.0, size=(8, 2))
