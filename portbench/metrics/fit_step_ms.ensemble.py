@@ -1,0 +1,6 @@
+"""fit_step_ms.ensemble: fit_step_ms (metrics/fit_step_ms.py) in the ensemble fit cells, whose
+host-paced spread would set a loose bound for the single-design fit's."""
+
+from portbench.harness import cell
+
+read = cell.load_module(cell.HERE / "metrics" / "fit_step_ms.py").read
